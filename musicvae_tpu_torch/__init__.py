@@ -1,0 +1,8 @@
+"""musicvae_tpu_torch — the PyTorch / CUDA port of musicvae_tpu.
+
+A package of its own beside the JAX one, imported from the repo root. It
+imports torch and numpy, never jax or musicvae_tpu. Entry points run on
+the card (``device="cuda"``) unless the caller asks for the CPU; the
+first-conv and masked-BCE kernels are hand-written CUDA for sm_90a
+(csrc/), built at first use.
+"""

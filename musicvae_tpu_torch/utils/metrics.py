@@ -1,0 +1,80 @@
+"""Reconstruction-quality metrics and the eval function.
+
+Counterpart of the JAX package's utils/metrics.py: cell-level
+precision/recall/F1 of the binarized reconstruction, plus the one-sample
+ELBO terms. The unweighted masked-BCE sum goes through
+ops/fused_elbo.py ``masked_bce_sum`` (the kernel on the card).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from musicvae_tpu_torch.config import Config
+from musicvae_tpu_torch.midi.tensorize import pitch_mask
+from musicvae_tpu_torch.ops import fused_elbo, losses
+from musicvae_tpu_torch.ops.binarize import binarize_logits
+
+
+def recon_prf(recon_bin: torch.Tensor, x: torch.Tensor,
+              mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Cell-level precision/recall/F1 over masked cells. Inputs in {0,1};
+    ``mask`` broadcasts against x."""
+    x = x.float()
+    tp = torch.sum(recon_bin * x * mask)
+    fp = torch.sum(recon_bin * (1.0 - x) * mask)
+    fn = torch.sum((1.0 - recon_bin) * x * mask)
+    precision = tp / torch.clamp_min(tp + fp, 1.0)
+    recall = tp / torch.clamp_min(tp + fn, 1.0)
+    f1 = 2.0 * precision * recall / torch.clamp_min(precision + recall, 1e-9)
+    return {"precision": precision, "recall": recall, "f1": f1}
+
+
+def eval_metrics(cfg: Config, logits: torch.Tensor, x: torch.Tensor,
+                 latents, weights: Optional[torch.Tensor] = None,
+                 bce_sum: Callable = fused_elbo.masked_bce_sum
+                 ) -> Dict[str, torch.Tensor]:
+    """{loss, recon, kl, precision, recall, f1} of a forward's outputs.
+
+    ``weights`` (optional [B], 1.0 = real example, 0.0 = padding) weights
+    each example, so a final partial batch padded to the batch shape is
+    not double counted. ``bce_sum`` computes the unweighted masked BCE
+    sum: the kernel's dispatcher, or losses.masked_bce_sum to score the
+    same outputs with the plain version."""
+    mask = pitch_mask(cfg.midi, logits.device)
+    beta = cfg.train.beta_max
+    if weights is None:
+        batch = logits.shape[0]
+        recon = bce_sum(logits, x, mask) / batch
+        kl = sum(losses.kl_diag_gaussian(mu, lv) for mu, lv in latents) / batch
+        prf_mask = mask
+    else:
+        w = weights.float()
+        wsum = w.sum()
+        nb = tuple(range(1, logits.dim()))              # non-batch axes
+        bce_ex = torch.sum(losses.bce_with_logits(logits, x) * mask, dim=nb)
+        recon = torch.sum(w * bce_ex) / wsum
+        kl = sum(torch.sum(w * (-0.5) * torch.sum(
+            1.0 + lv - mu.square() - torch.exp(lv),
+            dim=tuple(range(1, mu.dim())))) for mu, lv in latents) / wsum
+        prf_mask = mask * w.reshape((-1,) + (1,) * (x.dim() - 1))
+    m = {"loss": recon + beta * kl, "recon": recon, "kl": kl}
+    recon_bin = binarize_logits(logits, cfg.midi.binarize_threshold, mask)
+    m.update(recon_prf(recon_bin, x, prf_mask))
+    return m
+
+
+def make_eval_fn(cfg: Config, model):
+    """Eval: (x [B,N,T,P], eps [B,z], weights=None) → {loss, recon, kl,
+    precision, recall, f1} as 0-d f32 tensors, from the one-sample ELBO
+    with the posterior noise ``eps`` given by the caller."""
+
+    @torch.inference_mode()
+    def eval_fn(x: torch.Tensor, eps: torch.Tensor,
+                weights: Optional[torch.Tensor] = None):
+        logits, latents = model(x, eps)
+        return eval_metrics(cfg, logits, x, latents, weights)
+
+    return eval_fn

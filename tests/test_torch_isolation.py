@@ -1,0 +1,58 @@
+"""The port stands alone: no module of musicvae_tpu_torch imports jax or
+the JAX package, and its CUDA entry points refuse to run without a GPU
+instead of quietly running on the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from musicvae_tpu_torch.cli import main
+from musicvae_tpu_torch.config import get_config
+from musicvae_tpu_torch.models.vae import build_model
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import musicvae_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "musicvae_tpu"))
+print(len(names), ",".join(bad))
+"""
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, _, bad = out.stdout.strip().partition(" ")
+    assert int(n) >= 15, out.stdout
+    assert bad == "", f"imports {bad}"
+
+
+def test_no_source_file_mentions_jax_imports():
+    for path in (REPO / "musicvae_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1].split(".")[0]
+                assert mod not in ("jax", "flax", "musicvae_tpu"), \
+                    f"{path}: {s}"
+
+
+def test_cuda_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the entry points would run on it")
+    cfg = get_config("c2_gru_4bar")
+    with pytest.raises(RuntimeError, match="is_available"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(["serve", "--bars", "1", "--samples", "1"])
