@@ -1,36 +1,54 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (musicvae_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only PHASES] [--log-file PATH]
 
 Phases, each of which fails the run (non-zero exit, no result line) when a
 check does not hold:
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the build of the hand-written kernels from csrc/;
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it, then timed beside its bound, its
-   plain version and one library call;
+2. kernels: each of the seven kernels against its plain PyTorch version on
+   the card, at the shapes the main path gives it and at ragged ones, then
+   timed beside its bound, its plain version and one library call;
 3. reference: the model in f32 on the card against the same weights on
    the CPU (the path the CPU tests hold against the JAX package);
 4. serve: full-width c2_gru_4bar (bf16, first-conv kernel on, seeded
    random weights) answers generation and stats requests through the
    port's serve loop; the first-conv kernel must run every bar;
 5. eval: one 64x4-bar batch scored through the masked-BCE kernel, held
-   against the same eval with the plain BCE.
+   against the same eval with the plain BCE;
+6. fused_elbo: ``fused_elbo()`` and its gradients (the single-output BCE
+   kernel, its backward kernel and the KL pair) against ``elbo_loss``
+   under autograd;
+7. train: full-width c2_gru_4bar (bf16, batch 64) takes 20 steps in 5-step
+   dispatches through ``train()`` on a seeded bar cache resident on the
+   card. The dual-output BCE kernel must run once a step and the loss must
+   fall; the same run repeated gives the same loss and parameter bits; 5
+   steps with the plain BCE, and 5 with the first conv's forward and
+   backward kernels, must agree with it; a dispatch must not wait on the
+   card; then steps/s, one step's device time and the device-busy share,
+   with and without deterministic algorithms.
 
 The last lines are a "details:" JSON line with every check and timing,
 the card's name and power limit, the kernels JSON object, and
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. ``--log-file`` keeps a copy of everything
+printed. ``--only`` runs a subset of the phases for development, and
+``--only profile`` a phase the full run leaves out: which parts of a train
+step the launch queue can hold, and torch.profiler's kernel table of one
+train dispatch.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
 import io
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -40,11 +58,18 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM f32, outside the tensor cores
-K1_REPLACES = "musicvae_tpu/ops/conv1_pallas.py:112"
-K2_REPLACES = "musicvae_tpu/ops/fused_elbo.py:58"
-SERVE_REQUESTS = 8
-SPIN_CYCLES = 2_000_000   # ~1 ms of spin: longer than the host needs to
-#                           enqueue one timed kernel call
+K_REPLACES = {          # kernel → the TPU kernel body it replaces
+    "first_conv_s2": "musicvae_tpu/ops/conv1_pallas.py:112",
+    "first_conv_s2_bwd": "musicvae_tpu/ops/conv1_pallas.py:189",
+    "masked_bce_sum": "musicvae_tpu/ops/fused_elbo.py:58",
+    "masked_bce_bwd": "musicvae_tpu/ops/fused_elbo.py:75",
+    "masked_bce_sum_dual": "musicvae_tpu/ops/fused_elbo.py:207",
+    "kl_sum": "musicvae_tpu/ops/fused_elbo.py:285",
+    "kl_bwd": "musicvae_tpu/ops/fused_elbo.py:291",
+}
+SERVE_REQUESTS = 4
+SPIN_CYCLES = 10_000_000  # ~5 ms of spin: longer than the host needs to
+#                           enqueue one timed call, autograd included
 FLIP_LIMIT = 0.10   # share of generated cells the stock conv may change
 
 
@@ -57,17 +82,25 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+LOG_FILE = None      # --log-file: a copy of everything log() prints
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            f.write(msg + "\n")
 
 
-def held_ms(fn, spin_cycles: int = SPIN_CYCLES) -> float:
+def held_ms(fn, spin_cycles: int = SPIN_CYCLES, strict: bool = True):
     """Device time of everything ``fn`` enqueues, in ms: a spin kernel
     holds the stream while the host enqueues ``fn`` between two CUDA
     events, so the events time the card's work alone, without the host's
     launch gaps. Any op in ``fn`` that would wait for the card raises
-    (sync debug mode "error"); the run fails if the spin ended before the
-    host finished."""
+    (sync debug mode "error"). If the spin ended before the host had
+    finished (it was too short, or the launch queue filled and the host
+    had to wait for it), the events timed the host too: the run fails, or
+    with ``strict=False`` the result is None."""
     torch.cuda._sleep(spin_cycles)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -80,23 +113,34 @@ def held_ms(fn, spin_cycles: int = SPIN_CYCLES) -> float:
         torch.cuda.set_sync_debug_mode("default")
     end.record()
     enqueue_ms = (time.perf_counter() - t0) * 1e3
-    check(not start.query(), f"the spin ended before the host had enqueued "
-                             f"the timed call ({enqueue_ms:.1f} ms); raise "
-                             f"its cycles")
+    held = not start.query()
     end.synchronize()
+    if not held:
+        check(not strict, f"the spin ended before the host had enqueued "
+                          f"the timed call ({enqueue_ms:.1f} ms); raise "
+                          f"its cycles")
+        return None
     return start.elapsed_time(end)
 
 
 def time_ms(fn, flush: torch.Tensor, iters: int = 30) -> float:
     """Mean device time of one call of ``fn`` (``held_ms``), each call
-    from a cold L2: ``flush``, larger than L2, is overwritten first."""
+    from a cold L2: ``flush``, larger than L2, is overwritten first. A
+    sample in which the host was too slow to stay behind the spin (a busy
+    host) is taken again; the run fails if that happens ``iters`` times."""
     for _ in range(3):
         fn()
-    total = 0.0
-    for _ in range(iters):
+    samples, missed = [], 0
+    while len(samples) < iters:
         flush.zero_()
-        total += held_ms(fn)
-    return total / iters
+        ms = held_ms(fn, strict=False)
+        if ms is None:
+            missed += 1
+            check(missed < iters, f"the host could not stay behind the spin "
+                                  f"in {missed} timed calls")
+        else:
+            samples.append(ms)
+    return sum(samples) / iters
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -122,25 +166,25 @@ def header():
     log(f"kernel build + load: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_kernels.build_info['seconds']:.1f} s) -> "
         f"{_kernels.build_info['path']}")
-    for line in _kernels.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                        _kernels.build_info["log"])]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill",
+                                          _kernels.build_info["log"])]
+    if regs:
+        log(f"  ptxas: {len(regs)} kernel instantiations, at most "
+            f"{max(regs)} registers a thread, {sum(spills)} bytes spilled")
     return card
 
 
-def kernel_checks(seed: int, dev: torch.device):
-    """K1 and K2 against their plain versions, then timed. Returns the
-    kernels line's entries (launches filled in later) and details."""
-    import torch.nn.functional as F
+def _case_log(tag: str, case: dict, details: dict, key: str) -> None:
+    details[key].append(case)
+    log(f"{tag} {case}")
 
-    from musicvae_tpu_torch.ops import conv1, fused_elbo, losses
 
-    g = torch.Generator(dev).manual_seed(seed)
-    details = {"k1": [], "k2": []}
-    c = 16
-    w = torch.randn((3, 3, c), generator=g, device=dev) / 3.0
-    b = 0.1 * torch.randn(c, generator=g, device=dev)
-    k1_err = {}
+def _k1_checks(g, dev, w, b, details):
+    from musicvae_tpu_torch.ops import conv1
+
+    err = {}
     for m in (4, 256):
         for x_dtype in (torch.uint8, torch.bfloat16):
             x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.1)
@@ -150,94 +194,356 @@ def kernel_checks(seed: int, dev: torch.device):
                 got = conv1.first_conv_s2(x, w, b, True, out_dtype).float()
                 ref = conv1.first_conv_s2_ref(x, w, b, True,
                                               out_dtype).float()
-                err = (got - ref).abs()
-                max_abs = float(err.max())
-                max_rel = float((err / ref.abs().clamp_min(1e-6)).max())
-                ok = bool((err <= tol + tol * ref.abs()).all())
+                diff = (got - ref).abs()
                 case = dict(m=m, x=str(x_dtype), out=str(out_dtype),
-                            max_abs_err=max_abs, max_rel_err=max_rel,
-                            tol=tol, ok=ok)
-                details["k1"].append(case)
-                log(f"K1 first_conv_s2 {case}")
-                check(ok, f"K1 disagrees with its plain version: {case}")
-                k1_err[(m, x_dtype, out_dtype)] = max_abs
+                            max_abs_err=float(diff.max()),
+                            max_rel_err=float(
+                                (diff / ref.abs().clamp_min(1e-6)).max()),
+                            tol=tol,
+                            ok=bool((diff <= tol + tol * ref.abs()).all()))
+                _case_log("K1 first_conv_s2", case, details, "k1")
+                check(case["ok"], f"K1 disagrees with its plain version: "
+                                  f"{case}")
+                err[(m, x_dtype, out_dtype)] = case["max_abs_err"]
+    return err
+
+
+def _k1b_checks(g, dev, w, b, details):
+    """The first conv's backward kernel against autograd through the plain
+    forward (cuDNN's f32 backward on the card, TF32 off). Tolerance as the
+    JAX package's own test: atol 1e-3 + rtol 1e-3."""
+    from musicvae_tpu_torch.ops import conv1
+
+    err = {}
+    cases = [(m, xd, od, True) for m in (5, 256)
+             for xd in (torch.uint8, torch.bfloat16)
+             for od in (torch.float32, torch.bfloat16)]
+    cases.append((5, torch.uint8, torch.float32, False))
+    for m, x_dtype, out_dtype, gelu in cases:
+        x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.1
+             ).to(x_dtype)
+        dy = torch.randn((m, 48, 64, w.shape[-1]), generator=g,
+                         device=dev).to(out_dtype)
+        outs = []
+        for _ in range(2):
+            wl = w.clone().requires_grad_(True)
+            bl = b.clone().requires_grad_(True)
+            y = conv1.first_conv_s2(x, wl, bl, gelu, out_dtype)
+            outs.append(torch.autograd.grad(y, (wl, bl), dy))
+        (dw, db), (dw2, db2) = outs
+        rw, rb = conv1.first_conv_s2_bwd_ref(x, w, b, dy, gelu)
+        case = dict(m=m, x=str(x_dtype), dy=str(out_dtype), gelu=gelu)
+        ok = True
+        for nm, got, ref in (("dw", dw, rw), ("db", db, rb)):
+            diff = (got - ref).abs()
+            case[f"{nm}_max_abs_err"] = float(diff.max())
+            case[f"{nm}_max_rel_err"] = float(
+                (diff / ref.abs().clamp_min(1e-3)).max())
+            ok = ok and bool((diff <= 1e-3 + 1e-3 * ref.abs()).all())
+        case["same_bits_twice"] = bool(torch.equal(dw, dw2)
+                                       and torch.equal(db, db2))
+        case["ok"] = ok
+        _case_log("K1b first_conv_s2_bwd", case, details, "k1b")
+        check(ok, f"K1b disagrees with its plain version: {case}")
+        check(case["same_bits_twice"], f"K1b is not deterministic: {case}")
+        err[(m, x_dtype, out_dtype, gelu)] = max(case["dw_max_abs_err"],
+                                                 case["db_max_abs_err"])
+    return err
+
+
+def _bce_checks(g, dev, details):
+    """K2 (sum), K4 (sum + tile) and K3 (backward) against the plain BCE
+    under autograd. Sums: 1e-5 relative. Gradients: 1e-6·max(1, g)
+    absolute for f32 logits; for bf16 logits one bf16 step at the largest
+    gradient, g·2^-7 (both sides round the same f32 value)."""
+    from musicvae_tpu_torch.ops import fused_elbo, losses
 
     crop = torch.zeros(128, device=dev)
     crop[24:108] = 1.0
     full = torch.ones(128, device=dev)
-    k2_err = {}
+    err = {"k2": {}, "k3": {}, "k4": {}}
+
+    def run(fn, lg, x, mask, gscale):
+        leaf = lg.clone().requires_grad_(True)
+        total = fn(leaf, x, mask)
+        (grad,) = torch.autograd.grad(total * gscale, leaf)
+        return total.detach(), grad
+
     for shape in ((64, 4, 96, 128), (12345, 128)):
         logits = 3.0 * torch.randn(shape, generator=g, device=dev)
         xb = torch.rand(shape, generator=g, device=dev) < 0.05
         for l_dtype in (torch.float32, torch.bfloat16):
             lg = logits.to(l_dtype)
             for x_dtype in (torch.float32, torch.uint8):
+                x = xb.to(x_dtype)
                 for mname, mask in (("full", full), ("crop", crop)):
-                    got = fused_elbo.masked_bce_sum(lg, xb.to(x_dtype), mask)
-                    again = fused_elbo.masked_bce_sum(lg, xb.to(x_dtype),
-                                                      mask)
-                    ref = losses.masked_bce_sum(lg, xb.to(x_dtype), mask)
-                    err = abs(float(got) - float(ref))
-                    rel = err / abs(float(ref))
+                    with torch.no_grad():
+                        k2 = fused_elbo.masked_bce_sum(lg, x, mask)
+                        k2_again = fused_elbo.masked_bce_sum(lg, x, mask)
+                    ref = losses.masked_bce_sum(lg, x, mask)
+                    rel = abs(float(k2) - float(ref)) / abs(float(ref))
                     case = dict(shape=list(shape), logits=str(l_dtype),
-                                x=str(x_dtype), mask=mname, kernel=float(got),
-                                plain=float(ref), abs_err=err, rel_err=rel,
-                                same_bits_twice=bool(torch.equal(got, again)))
-                    details["k2"].append(case)
-                    log(f"K2 masked_bce_sum {case}")
-                    check(rel <= 1e-5, f"K2 disagrees (rel {rel:.2e} > "
-                                       f"1e-5): {case}")
+                                x=str(x_dtype), mask=mname, kernel=float(k2),
+                                plain=float(ref), rel_err=rel,
+                                abs_err=abs(float(k2) - float(ref)),
+                                same_bits_twice=bool(
+                                    torch.equal(k2, k2_again)))
+                    _case_log("K2 masked_bce_sum", case, details, "k2")
+                    check(rel <= 1e-5, f"K2 disagrees: {case}")
                     check(case["same_bits_twice"],
                           f"K2 is not deterministic: {case}")
-                    k2_err[(shape, l_dtype, x_dtype, mname)] = err
+                    err["k2"][(shape, l_dtype, x_dtype, mname)] = \
+                        case["abs_err"]
+                    for gscale in (1.0, 3.5):
+                        tol = (1e-6 * max(1.0, gscale)
+                               if l_dtype == torch.float32
+                               else gscale * 2.0 ** -7)
+                        want = fused_elbo.masked_bce_bwd_plain(
+                            lg, x, mask, gscale)
+                        s4, g4 = run(fused_elbo.masked_bce_sum_dual, lg, x,
+                                     mask, gscale)
+                        s4b, g4b = run(fused_elbo.masked_bce_sum_dual, lg,
+                                       x, mask, gscale)
+                        s3, g3 = run(fused_elbo.masked_bce_sum, lg, x, mask,
+                                     gscale)
+                        _, g3b = run(fused_elbo.masked_bce_sum, lg, x, mask,
+                                     gscale)
+                        e4 = float((g4.float() - want.float()).abs().max())
+                        e3 = float((g3.float() - want.float()).abs().max())
+                        case = dict(
+                            shape=list(shape), logits=str(l_dtype),
+                            x=str(x_dtype), mask=mname, g=gscale, tol=tol,
+                            k4_grad_max_abs_err=e4, k3_grad_max_abs_err=e3,
+                            k4_sum_equals_k2_bits=bool(torch.equal(s4, k2)),
+                            k3_equals_k4_grad_bits=bool(torch.equal(g3, g4)),
+                            same_bits_twice=bool(
+                                torch.equal(s4, s4b) and torch.equal(g4, g4b)
+                                and torch.equal(g3, g3b)))
+                        _case_log("K4/K3 masked_bce dual/bwd", case, details,
+                                  "k34")
+                        check(e4 <= tol and e3 <= tol,
+                              f"K4/K3 gradient disagrees: {case}")
+                        check(case["k4_sum_equals_k2_bits"],
+                              f"K4's sum is not K2's bits: {case}")
+                        check(bool(torch.equal(s3, k2)),
+                              f"K2 under autograd changed its sum: {case}")
+                        check(case["same_bits_twice"],
+                              f"K4/K3 not deterministic: {case}")
+                        key = (shape, l_dtype, x_dtype, mname, gscale)
+                        err["k4"][key], err["k3"][key] = e4, e3
+    return err
+
+
+def _kl_checks(g, dev, details):
+    """K5 against the plain KL sum (1e-5 relative), K6 against the plain
+    gradients (1e-6·max(1, g) absolute in f32; one bf16 step of the
+    largest gradient for bf16 inputs)."""
+    from musicvae_tpu_torch.ops import fused_elbo, losses
+
+    err = {}
+    for shape in ((64, 128), (7, 3, 50)):
+        for dtype in (torch.float32, torch.bfloat16):
+            mu = torch.randn(shape, generator=g, device=dev).to(dtype)
+            lv = torch.randn(shape, generator=g, device=dev).to(dtype)
+            ref = losses.kl_diag_gaussian(mu.float(), lv.float())
+            for gscale in (1.0, 3.5):
+                outs = []
+                for _ in range(2):
+                    ml = mu.clone().requires_grad_(True)
+                    ll = lv.clone().requires_grad_(True)
+                    total = fused_elbo.kl_sum(ml, ll)
+                    outs.append((total.detach(), *torch.autograd.grad(
+                        total * gscale, (ml, ll))))
+                (kl, dmu, dlv), (kl2, dmu2, dlv2) = outs
+                wmu, wlv = fused_elbo.kl_bwd_plain(mu, lv, gscale)
+                rel = abs(float(kl) - float(ref)) / abs(float(ref))
+                emu = float((dmu.float() - wmu.float()).abs().max())
+                elv = float((dlv.float() - wlv.float()).abs().max())
+                gmax = float(torch.maximum(wmu.float().abs().max(),
+                                           wlv.float().abs().max()))
+                tol = (1e-6 * max(1.0, gscale) if dtype == torch.float32
+                       else gmax * 2.0 ** -7)
+                case = dict(shape=list(shape), dtype=str(dtype), g=gscale,
+                            kernel=float(kl), plain=float(ref), rel_err=rel,
+                            abs_err=abs(float(kl) - float(ref)),
+                            dmu_max_abs_err=emu, dlv_max_abs_err=elv,
+                            tol=tol, same_bits_twice=bool(
+                                torch.equal(kl, kl2) and torch.equal(dmu, dmu2)
+                                and torch.equal(dlv, dlv2)))
+                _case_log("K5/K6 kl_sum/kl_bwd", case, details, "k56")
+                check(rel <= 1e-5, f"K5 disagrees: {case}")
+                check(emu <= tol and elv <= tol, f"K6 disagrees: {case}")
+                check(case["same_bits_twice"],
+                      f"K5/K6 not deterministic: {case}")
+                err[(shape, dtype, gscale)] = (case["abs_err"],
+                                               max(emu, elv))
+    return err
+
+
+def kernel_checks(seed: int, dev: torch.device):
+    """Every kernel against its plain version, then timed at the main
+    path's shapes. Returns the kernels line's entries (launches filled in
+    later) and details."""
+    import torch.nn.functional as F
+
+    from musicvae_tpu_torch.ops import conv1, fused_elbo, losses
+
+    g = torch.Generator(dev).manual_seed(seed)
+    details = {"k1": [], "k1b": [], "k2": [], "k34": [], "k56": []}
+    c = 16
+    w = torch.randn((3, 3, c), generator=g, device=dev) / 3.0
+    b = 0.1 * torch.randn(c, generator=g, device=dev)
+    k1_err = _k1_checks(g, dev, w, b, details)
+    k1b_err = _k1b_checks(g, dev, w, b, details)
+    bce_err = _bce_checks(g, dev, details)
+    kl_err = _kl_checks(g, dev, details)
 
     # timing at the main path's shapes, each run from a cold L2
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    csrc = "musicvae_tpu_torch/csrc/"
+
+    def entry(name, source, replaces, err, ms, plain, lib_ms, nbytes, ops,
+              path, **extra):
+        bms, by = bound_ms(nbytes, ops)
+        e = {"name": name, "route": "cuda", "source": csrc + source,
+             "replaces": replaces, "launches": None, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+             "library_ms": lib_ms, "path": path, **extra}
+        lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+        log(f"timing {name}: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.2f} us, library {lib}, bound {bms * 1e3:.2f} us "
+            f"({by})")
+        return e
+
     entries = []
-    for m, path in ((4, "serve"), (256, "eval")):
+    w_lib = w.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous()
+    b_lib = b.to(torch.bfloat16)
+    k1_timed = {}
+    for m in (4, 256):
         x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.05
              ).to(torch.uint8)
         x_nchw = x[:, None].to(torch.bfloat16)
-        w_lib = w.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous()
-        b_lib = b.to(torch.bfloat16)
-        ms = time_ms(lambda: conv1.first_conv_s2(x, w, b), flush)
-        plain = time_ms(lambda: conv1.first_conv_s2_ref(x, w, b), flush)
-        lib_ms = time_ms(lambda: F.gelu(F.conv2d(
-            x_nchw, w_lib, b_lib, stride=2, padding=1), approximate="tanh"),
-            flush)
         outs = m * 48 * 64 * c
         bms, by = bound_ms(x.numel() + 4 * (w.numel() + b.numel()) + 2 * outs,
                            outs * (2 * 9 + 1 + 8))
-        entries.append({
-            "name": f"first_conv_s2 ({path}, M={m}, uint8 in, bf16 out)",
-            "route": "cuda", "source": "musicvae_tpu_torch/csrc/conv1.cu",
-            "replaces": K1_REPLACES, "launches": None,
-            "max_abs_err": k1_err[(m, torch.uint8, torch.bfloat16)],
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms, "path": path})
+        k1_timed[m] = dict(
+            ms=time_ms(lambda: conv1.first_conv_s2(x, w, b), flush),
+            plain_ms=time_ms(lambda: conv1.first_conv_s2_ref(x, w, b), flush),
+            library_ms=time_ms(lambda: F.gelu(F.conv2d(
+                x_nchw, w_lib, b_lib, stride=2, padding=1),
+                approximate="tanh"), flush),
+            bound_ms=bms, bound_by=by,
+            max_abs_err=k1_err[(m, torch.uint8, torch.bfloat16)])
+    t = k1_timed[256]
+    outs = 256 * 48 * 64 * c
+    entries.append(entry(
+        "first_conv_s2 (train/eval, M=256, uint8 in, bf16 out)", "conv1.cu",
+        K_REPLACES["first_conv_s2"], t["max_abs_err"], t["ms"],
+        t["plain_ms"], t["library_ms"],
+        256 * 96 * 128 + 4 * (w.numel() + b.numel()) + 2 * outs,
+        outs * (2 * 9 + 1 + 8), "train_conv1",
+        serve_shape={"name": "first_conv_s2 (serve, M=4, uint8 in, bf16 "
+                             "out)", **k1_timed[4]}))
+    log(f"timing first_conv_s2 (serve, M=4): {k1_timed[4]}")
+
+    # K1b at the train shape: uint8 bars, bf16 dy
+    x = (torch.rand((256, 96, 128), generator=g, device=dev) < 0.05
+         ).to(torch.uint8)
+    dy = torch.randn((256, 48, 64, c), generator=g, device=dev
+                     ).to(torch.bfloat16)
+    x_nchw = x[:, None].to(torch.bfloat16)
+    z_nchw = F.conv2d(x_nchw, w_lib, b_lib, stride=2, padding=1)
+    dy_nchw = dy.permute(0, 3, 1, 2)        # channels-last, as it arrives
+
+    def k1b_library():
+        dz = torch.ops.aten.gelu_backward(dy_nchw, z_nchw,
+                                          approximate="tanh")
+        return torch.ops.aten.convolution_backward(
+            dz, x_nchw, w_lib, [c], [2, 2], [1, 1], [1, 1], False, [0, 0],
+            1, [False, True, True])
+
+    entries.append(entry(
+        "first_conv_s2_bwd (train, M=256, uint8 x, bf16 dy)", "conv1_bwd.cu",
+        K_REPLACES["first_conv_s2_bwd"],
+        k1b_err[(256, torch.uint8, torch.bfloat16, True)],
+        time_ms(lambda: conv1._backward(x, w, b, dy, True), flush),
+        time_ms(lambda: conv1.first_conv_s2_bwd_ref(x, w, b, dy, True),
+                flush),
+        time_ms(k1b_library, flush),
+        x.numel() + 2 * dy.numel() + 4 * 2 * (w.numel() + b.numel()),
+        dy.numel() * (2 * 9 + 2 * 9 + 12), "train_conv1",
+        library_note="gelu_backward + convolution_backward (weight, bias) "
+                     "in bf16, given the pre-activation z for free"))
 
     shape = (64, 4, 96, 128)
     logits = 3.0 * torch.randn(shape, generator=g, device=dev)
     xb = (torch.rand(shape, generator=g, device=dev) < 0.05)
     xu8, xf = xb.to(torch.uint8), xb.to(torch.float32)
-    ms = time_ms(lambda: fused_elbo.masked_bce_sum(logits, xu8, full), flush)
-    plain = time_ms(lambda: losses.masked_bce_sum(logits, xu8, full), flush)
-    lib_ms = time_ms(lambda: F.binary_cross_entropy_with_logits(
-        logits, xf, weight=full, reduction="sum"), flush)
+    full = torch.ones(128, device=dev)
     n = logits.numel()
-    bms, by = bound_ms(4 * n + n + 4 * 128 + 4, 9 * n)
-    entries.append({
-        "name": "masked_bce_sum (eval, [64,4,96,128] f32 logits, uint8 x)",
-        "route": "cuda", "source": "musicvae_tpu_torch/csrc/masked_bce.cu",
-        "replaces": K2_REPLACES, "launches": None,
-        "max_abs_err": k2_err[(shape, torch.float32, torch.uint8, "full")],
-        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib_ms, "path": "eval"})
-    for e in entries:
-        log(f"timing {e['name']}: kernel {e['ms'] * 1e3:.2f} us, plain "
-            f"{e['plain_ms'] * 1e3:.2f} us, library "
-            f"{e['library_ms'] * 1e3:.2f} us, bound "
-            f"{e['bound_ms'] * 1e3:.2f} us ({e['bound_by']})")
+    key = (shape, torch.float32, torch.uint8, "full")
+    with torch.no_grad():
+        entries.append(entry(
+            "masked_bce_sum (eval, [64,4,96,128] f32 logits, uint8 x)",
+            "masked_bce.cu", K_REPLACES["masked_bce_sum"],
+            bce_err["k2"][key],
+            time_ms(lambda: fused_elbo.masked_bce_sum(logits, xu8, full),
+                    flush),
+            time_ms(lambda: losses.masked_bce_sum(logits, xu8, full), flush),
+            time_ms(lambda: F.binary_cross_entropy_with_logits(
+                logits, xf, weight=full, reduction="sum"), flush),
+            4 * n + n + 4 * 128 + 4, 9 * n, "eval"))
+
+    gdev = torch.full((), 1.0 / 64, device=dev)
+    leaf = logits.clone().requires_grad_(True)
+
+    def plain_dual():
+        total = losses.masked_bce_sum(leaf, xu8, full)
+        return total, torch.autograd.grad(total, leaf)
+
+    def library_dual():
+        total = F.binary_cross_entropy_with_logits(leaf, xf, weight=full,
+                                                   reduction="sum")
+        return total, torch.autograd.grad(total, leaf)
+
+    entries.append(entry(
+        "masked_bce_sum_dual (train, [64,4,96,128] f32 logits, uint8 x)",
+        "masked_bce.cu", K_REPLACES["masked_bce_sum_dual"],
+        bce_err["k4"][key + (1.0,)],
+        time_ms(lambda: fused_elbo._bce_sum(logits, xu8, full, dual=True),
+                flush),
+        time_ms(plain_dual, flush), time_ms(library_dual, flush),
+        4 * n + n + 4 * n + 4 * 128 + 4, 15 * n, "train",
+        library_note="binary_cross_entropy_with_logits(sum) forward + "
+                     "autograd.grad"))
+    entries.append(entry(
+        "masked_bce_bwd (fused_elbo backward, [64,4,96,128] f32 logits, "
+        "uint8 x)", "masked_bce.cu", K_REPLACES["masked_bce_bwd"],
+        bce_err["k3"][key + (1.0,)],
+        time_ms(lambda: fused_elbo._bce_bwd(logits, xu8, full, gdev), flush),
+        time_ms(lambda: fused_elbo.masked_bce_bwd_plain(logits, xu8, full,
+                                                        gdev), flush),
+        time_ms(lambda: (torch.sigmoid(logits) - xf) * full * gdev, flush),
+        4 * n + n + 4 * n + 4 * 128 + 4, 10 * n, "fused_elbo",
+        library_note="(sigmoid(l) - x) * mask * g, eager, x already f32"))
+
+    mu = torch.randn((64, 128), generator=g, device=dev)
+    lv = torch.randn((64, 128), generator=g, device=dev)
+    nz = mu.numel()
+    kkey = ((64, 128), torch.float32, 1.0)
+    with torch.no_grad():
+        entries.append(entry(
+            "kl_sum (fused_elbo, [64,128] f32)", "kl.cu",
+            K_REPLACES["kl_sum"], kl_err[kkey][0],
+            time_ms(lambda: fused_elbo.kl_sum(mu, lv), flush),
+            time_ms(lambda: losses.kl_diag_gaussian(mu, lv), flush), None,
+            8 * nz + 4, 6 * nz, "fused_elbo"))
+    entries.append(entry(
+        "kl_bwd (fused_elbo backward, [64,128] f32)", "kl.cu",
+        K_REPLACES["kl_bwd"], kl_err[kkey][1],
+        time_ms(lambda: fused_elbo._kl_bwd(mu, lv, gdev), flush),
+        time_ms(lambda: fused_elbo.kl_bwd_plain(mu, lv, gdev), flush), None,
+        8 * nz + 4 + 8 * nz, 5 * nz, "fused_elbo"))
     return entries, details
 
 
@@ -425,40 +731,460 @@ def eval_phase(seed: int, dev: torch.device):
     return launches, {"kernel": got, "plain": plain, "eval_ms_host": dt * 1e3}
 
 
+def profiled_kernels(fn):
+    """(kernel launches, summed kernel time in ms) on the card for one call
+    of ``fn``, from torch.profiler. The times are the kernels' own; the
+    host's launch gaps between them are not in the sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.count, e.device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    check(bool(rows), "torch.profiler recorded no device time")
+    return sum(r[0] for r in rows), sum(r[1] for r in rows) / 1e3
+
+
+def fused_elbo_phase(seed: int, dev: torch.device):
+    """``fused_elbo`` (the single-output BCE kernel, its backward kernel
+    and the KL pair) against ``elbo_loss`` under autograd, at the train
+    shapes. Value 1e-5 relative, gradients 1e-6 absolute."""
+    from musicvae_tpu_torch.ops import _kernels, fused_elbo, losses
+
+    g = torch.Generator(dev).manual_seed(seed + 7)
+    shape = (64, 4, 96, 128)
+    logits = 3.0 * torch.randn(shape, generator=g, device=dev)
+    x = (torch.rand(shape, generator=g, device=dev) < 0.05).to(torch.uint8)
+    mask = torch.ones(128, device=dev)
+    mu = torch.randn((64, 128), generator=g, device=dev)
+    lv = torch.randn((64, 128), generator=g, device=dev)
+    beta = torch.full((), 0.37, device=dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (logits, mu, lv)]
+        loss, aux = fn(leaves[0], x, mask, leaves[1], leaves[2], beta)
+        return (loss.detach(), aux,
+                torch.autograd.grad(loss, leaves))
+
+    _kernels.reset_launches()
+    loss, aux, grads = run(fused_elbo.fused_elbo)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    want, _, want_grads = run(losses.elbo_loss)
+    rel = abs(float(loss) - float(want)) / abs(float(want))
+    errs = {n: float((a - b).abs().max())
+            for n, a, b in zip(("dlogits", "dmu", "dlogvar"), grads,
+                               want_grads)}
+    out = {"kernel_loss": float(loss), "plain_loss": float(want),
+           "rel_err": rel, "grad_max_abs_err": errs,
+           "recon": float(aux["recon"].detach()),
+           "kl": float(aux["kl"].detach())}
+    log(f"fused_elbo launches: {launches}")
+    log(f"fused_elbo: {out}")
+    check(rel <= 1e-5, f"fused_elbo value disagrees (rel {rel:.2e})")
+    check(all(e <= 1e-6 for e in errs.values()),
+          f"fused_elbo gradients disagree: {errs}")
+    for name in ("masked_bce_sum", "masked_bce_bwd", "kl_sum", "kl_bwd"):
+        check(launches[name] == 1, f"{name} launched {launches[name]} "
+                                   f"times in fused_elbo, expected 1")
+    return launches, out
+
+
+def make_bar_cache(seed: int, pieces: int = 128, bars_per_piece: int = 32,
+                   num_bars: int = 4):
+    """A seeded uint8 bar cache with musical structure (held notes from a
+    per-piece scale on a per-piece rhythm grid), as a PianoRollDataset of
+    ``num_bars`` windows that never cross a piece."""
+    from musicvae_tpu_torch.data.dataset import PianoRollDataset
+
+    rng = np.random.default_rng(seed)
+    n = pieces * bars_per_piece
+    bars = np.zeros((n, 96, 128), np.uint8)
+    scale = np.array([0, 2, 4, 5, 7, 9, 11])
+    for piece in range(pieces):
+        root = rng.integers(36, 60)
+        grid = int(rng.choice([6, 12, 24]))
+        for bar in range(bars_per_piece):
+            roll = bars[piece * bars_per_piece + bar]
+            for _ in range(int(rng.integers(6, 14))):
+                pitch = root + 12 * rng.integers(0, 3) + rng.choice(scale)
+                start = grid * rng.integers(0, 96 // grid)
+                roll[start:start + grid * rng.integers(1, 4), pitch] = 1
+    per = bars_per_piece - num_bars + 1
+    starts = (np.arange(pieces)[:, None] * bars_per_piece
+              + np.arange(per)[None, :]).reshape(-1)
+    zeros = np.zeros(starts.shape[0], np.int32)
+    return PianoRollDataset(bars, starts, num_bars, zeros, zeros,
+                            np.repeat(np.arange(pieces), per),
+                            grid=(24, 4, 0))
+
+
+TRAIN_STEPS = 20
+TRAIN_K = 5
+LOSS_TOL_PLAIN = 1e-3    # kernel loss vs plain BCE under autograd, 5 steps:
+#                          the two gradients differ by f32 rounding only
+LOSS_TOL_CONV1 = 1e-2    # first-conv kernels vs cuDNN, 5 steps: bf16
+#                          rounding at the first conv, fed through Adam
+GRAD_NORM_TOL = 0.05     # bf16 step's grad_norm vs the f32 step's
+
+
+def train_phase(seed: int, dev: torch.device):
+    """Full-width c2_gru_4bar in bf16, batch 64, through ``train()`` on a
+    resident seeded bar cache; see the module docstring's phase 7."""
+    from musicvae_tpu_torch.config import get_config
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.train import trainer
+
+    base = get_config("c2_gru_4bar")
+    tspec = dataclasses.replace(
+        base.train, num_steps=TRAIN_STEPS, log_every=TRAIN_K, eval_every=10,
+        eval_batches=1, seed=seed)
+    cfg = base.replace(train=tspec)
+    check(trainer.pick_k(cfg, True) == TRAIN_K, "pick_k")
+    train_ds, eval_ds = make_bar_cache(seed).split(0.1, seed=seed)
+    log(f"train: {len(train_ds)} train windows, {len(eval_ds)} eval "
+        f"windows over {train_ds.bars.shape[0]} resident bars")
+
+    def run(cfg, steps):
+        logged = []
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, last = trainer.train(
+            cfg, train_ds, num_steps=steps, eval_data=eval_ds,
+            log_fn=lambda s, m: logged.append((s, m)), device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(int(state.step) == steps, f"state.step {int(state.step)}")
+        return model, logged, dict(_kernels.LAUNCHES), dt
+
+    model_a, logged_a, launches, dt_a = run(cfg, TRAIN_STEPS)
+    model_b, logged_b, launches_b, _ = run(cfg, TRAIN_STEPS)
+    steps_logged = [m for _, m in logged_a if "loss" in m]
+    evals_logged = [m for _, m in logged_a if "eval_loss" in m]
+    losses_a = [m["loss"] for m in steps_logged]
+    log(f"train launches ({TRAIN_STEPS} steps, 2 evals): {launches}; "
+        f"{dt_a:.2f} s with start-up")
+    for s, m in logged_a:
+        log(f"train log step {s}: {m}")
+    check(len(steps_logged) == TRAIN_STEPS // TRAIN_K and len(evals_logged)
+          == 2, f"logged {len(steps_logged)} steps, {len(evals_logged)} "
+                f"evals")
+    check(launches["masked_bce_sum_dual"] == TRAIN_STEPS,
+          f"K4 launched {launches['masked_bce_sum_dual']} times in "
+          f"{TRAIN_STEPS} steps")
+    check(launches["masked_bce_sum"] == len(evals_logged),
+          f"K2 launched {launches['masked_bce_sum']} times: expected one "
+          f"per eval batch and none in training")
+    check(launches["masked_bce_bwd"] == 0 and launches["kl_sum"] == 0
+          and launches["first_conv_s2"] == 0, f"stray launches {launches}")
+    check(all(np.isfinite(v) for m in steps_logged + evals_logged
+              for v in m.values()), "a logged metric is not finite")
+    check(all(m["nonfinite"] == 0.0 for m in steps_logged), "nonfinite set")
+    check(losses_a[-1] < losses_a[0],
+          f"the loss did not fall: {losses_a}")
+    same_loss = [m for _, m in logged_a] == [m for _, m in logged_b]
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        model_a.parameters(), model_b.parameters()))
+    log(f"train repeated from the same seed: same logged bits "
+        f"{same_loss}, same parameter bits {same_params}")
+    check(same_loss and same_params and launches == launches_b,
+          "a repeated run from the same seed differs")
+
+    # the same 5 steps with the plain BCE under autograd
+    plain_cfg = cfg.replace(train=dataclasses.replace(
+        tspec, use_pallas_loss=False))
+    _, logged_p, launches_p, _ = run(plain_cfg, TRAIN_K)
+    check(launches_p["masked_bce_sum_dual"] == 0, "plain run launched K4")
+    rel_plain = abs(logged_p[0][1]["loss"] - losses_a[0]) / losses_a[0]
+    log(f"train step {TRAIN_K}: kernel loss {losses_a[0]}, plain-BCE loss "
+        f"{logged_p[0][1]['loss']} (rel {rel_plain:.2e})")
+    check(rel_plain <= LOSS_TOL_PLAIN, f"kernel and plain-BCE training "
+                                       f"disagree (rel {rel_plain:.2e})")
+
+    # the same 5 steps with the first conv through its kernels
+    conv_cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, use_pallas_conv1=True))
+    _, logged_c, launches_c, _ = run(conv_cfg, TRAIN_K)
+    rel_conv = abs(logged_c[0][1]["loss"] - losses_a[0]) / losses_a[0]
+    log(f"train conv1 launches ({TRAIN_K} steps): {launches_c}")
+    log(f"train step {TRAIN_K}: first-conv kernels loss "
+        f"{logged_c[0][1]['loss']} vs stock conv {losses_a[0]} "
+        f"(rel {rel_conv:.2e})")
+    check(launches_c["first_conv_s2"] == 2 * TRAIN_K
+          and launches_c["first_conv_s2_bwd"] == 2 * TRAIN_K,
+          f"K1/K1b should each run twice a step: {launches_c}")
+    check(launches_c["masked_bce_sum_dual"] == TRAIN_K, "K4 per step")
+    check(rel_conv <= LOSS_TOL_CONV1, f"first-conv kernels and stock conv "
+                                      f"disagree (rel {rel_conv:.2e})")
+
+    # dispatches by hand: no hidden host wait, then timings
+    def fresh(cfg):
+        model, state = trainer.create_state(cfg, device=dev)
+        return state, trainer.make_train_step_indexed_multi(cfg, model)
+
+    data_dev = {"bars": torch.from_numpy(train_ds.bars).to(dev),
+                "starts": torch.from_numpy(train_ds.starts).to(dev)}
+    ids = trainer.make_id_schedule(seed, len(train_ds), 64)
+    n_disp = 8
+    idxs = [torch.from_numpy(np.stack([ids(d * TRAIN_K + j) for j in
+                                       range(TRAIN_K)])).to(dev)
+            for d in range(n_disp)]
+
+    def timed(cfg, deterministic):
+        state, multi = fresh(cfg)
+        ctx = (trainer.deterministic_algorithms() if deterministic
+               else contextlib.nullcontext())
+        with ctx:
+            multi(state, data_dev, idxs[0])                  # warm-up
+            multi(state, data_dev, idxs[1])
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                for d in range(2, n_disp):
+                    state, m = multi(state, data_dev, idxs[d])
+                enqueue = time.perf_counter() - t0
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+            steps = (n_disp - 2) * TRAIN_K
+            single = trainer.make_train_step_indexed(cfg, state.model)
+            step_ms = [held_ms(lambda: single(state, data_dev, idxs[0][j]),
+                               spin_cycles=150_000_000, strict=False)
+                       for j in range(TRAIN_K)]
+            kernels, kernel_ms = profiled_kernels(
+                lambda: multi(state, data_dev, idxs[0]))
+        held = [v for v in step_ms if v is not None]
+        return {"steps_per_s": steps / host,
+                "host_ms_per_step": host / steps * 1e3,
+                "enqueue_ms_per_step": enqueue / steps * 1e3,
+                "events_ms_per_step": start.elapsed_time(end) / steps,
+                "device_ms_per_step": kernel_ms / TRAIN_K,
+                "kernels_per_step": kernels / TRAIN_K,
+                "held_device_ms_per_step": (sum(held) / len(held) if held
+                                            else None),
+                "steps_held": len(held), "loss": float(m["loss"])}
+
+    # every option of the step that adds device work, to show that none of
+    # them waits on the card or lacks a deterministic algorithm
+    options_cfg = cfg.replace(train=dataclasses.replace(
+        tspec, transpose_aug=5, ema_decay=0.999, grad_clip_norm=1.0,
+        weight_decay=0.01, lr_schedule="cosine", lr_warmup_steps=10,
+        num_steps=1000, free_bits=0.125, adam_mu_dtype="bfloat16",
+        beta_schedule="cyclical", beta_cycle_steps=100,
+        beta_warmup_steps=50))
+    timings = {}
+    for name, c, det in (("deterministic", cfg, True),
+                         ("default_algorithms", cfg, False),
+                         ("default_algorithms_again", cfg, False),
+                         ("deterministic_again", cfg, True),
+                         ("conv1_kernels_deterministic", conv_cfg, True),
+                         ("every_option_deterministic", options_cfg, True)):
+        t = timed(c, det)
+        t["device_busy_share"] = (t["device_ms_per_step"]
+                                  / t["host_ms_per_step"])
+        timings[name] = t
+        log(f"train timing {name}: {t}")
+    log("train timing: steps_per_s and host_ms_per_step by host clock over "
+        f"{(n_disp - 2) * TRAIN_K} steps in {n_disp - 2} dispatches, no "
+        "host wait inside (sync debug mode 'error'); device_ms_per_step is "
+        "the sum of torch.profiler's kernel times over one dispatch, per "
+        "step; held_device_ms_per_step is one step's work on the card with "
+        "the host out of the way (a spin holds the stream while the host "
+        "enqueues the step; None where a step has more launches than the "
+        "launch queue holds); events_ms_per_step is CUDA events around the "
+        "dispatches, host gaps included; device_busy_share is "
+        "device_ms_per_step over host_ms_per_step")
+
+    # bf16 against f32 on one step from the same weights, batch and noise
+    norms = {}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(model=dataclasses.replace(cfg.model, dtype=dtype))
+        model, state = trainer.create_state(c, device=dev)
+        step = trainer.make_train_step_indexed(c, model)
+        eps = torch.randn((64, c.model.z_dim), device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed))
+        _, m = step(state, data_dev, idxs[0][0], eps=eps)
+        norms[dtype] = float(m["grad_norm"])
+    rel_norm = abs(norms["bfloat16"] - norms["float32"]) / norms["float32"]
+    log(f"train grad_norm of step 1: {norms} (rel {rel_norm:.2e})")
+    check(all(np.isfinite(v) for v in norms.values())
+          and rel_norm <= GRAD_NORM_TOL,
+          f"bf16 and f32 grad_norm differ by {rel_norm:.2%}")
+
+    return ({"train": launches, "train_conv1": launches_c},
+            {"logged": logged_a, "seconds_with_startup": dt_a,
+             "repeat_same_bits": same_loss and same_params,
+             "plain_bce_rel": rel_plain, "conv1_rel": rel_conv,
+             "timings": timings, "grad_norm": norms})
+
+
+def profile_phase(seed: int, dev: torch.device):
+    """Development aid, not part of the default run: where one train
+    step's time goes. Which parts of a step the launch queue can hold
+    behind a spin (a part that cannot makes the host wait on the card
+    somewhere sync debug mode does not see), and torch.profiler's kernel
+    table for a 5-step dispatch."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from musicvae_tpu_torch.config import get_config
+    from musicvae_tpu_torch.train import trainer
+
+    base = get_config("c2_gru_4bar")
+    ds = make_bar_cache(seed, pieces=32)
+    data_dev = {"bars": torch.from_numpy(ds.bars).to(dev),
+                "starts": torch.from_numpy(ds.starts).to(dev)}
+    ids = trainer.make_id_schedule(seed, len(ds), 64)
+    idxs = torch.from_numpy(np.stack([ids(j) for j in range(TRAIN_K)])
+                            ).to(dev)
+    out = {}
+    for name, conv1_kernels in (("stock_conv", False), ("conv1_kernels",
+                                                         True)):
+        cfg = base.replace(model=dataclasses.replace(
+            base.model, use_pallas_conv1=conv1_kernels))
+        model, state = trainer.create_state(cfg, device=dev)
+        multi = trainer.make_train_step_indexed_multi(cfg, model)
+        gather = trainer._make_window_gather(cfg)
+        x = gather(data_dev, idxs[0])["x"]
+        eps = torch.randn((64, 128), device=dev)
+        with trainer.deterministic_algorithms():
+            multi(state, data_dev, idxs)
+            torch.cuda.synchronize()
+            conv = model.enc_feat.convs[0]
+            xb = x.reshape(256, 1, 96, 128).to(torch.bfloat16)
+
+            def first_conv(grad):
+                w = conv.weight.to(torch.bfloat16)
+                y = F.conv2d(xb, w, conv.bias.to(torch.bfloat16), stride=2,
+                             padding=1)
+                if grad:
+                    torch.autograd.grad(y.float().sum(), conv.weight)
+
+            def fwd():
+                with torch.no_grad():
+                    model(x, eps)
+
+            def fwd_bwd():
+                logits, _ = model(x, eps)
+                torch.autograd.grad(logits.sum(), list(model.parameters()))
+
+            parts = {"first_conv_fwd": lambda: first_conv(False),
+                     "first_conv_fwd_bwd": lambda: first_conv(True),
+                     "model_fwd": fwd, "model_fwd_bwd": fwd_bwd,
+                     "optimizer": lambda: state.opt.update(
+                         [torch.zeros_like(p) for p in state.params])}
+            held = {}
+            for part, fn in parts.items():
+                fn()
+                torch.cuda.synchronize()
+                held[part] = held_ms(fn, spin_cycles=150_000_000,
+                                     strict=False)
+            log(f"profile {name}: device ms of each part when the queue "
+                f"held it behind the spin (None: it did not): {held}")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                multi(state, data_dev, idxs)
+                torch.cuda.synchronize()
+        events = prof.key_averages()
+        rows = sorted(((e.key, e.count, e.device_time_total) for e in events
+                       if e.device_time_total > 0 and e.device_type
+                       == torch.autograd.DeviceType.CUDA),
+                      key=lambda r: -r[2])
+        total_us = sum(r[2] for r in rows)
+        launches = sum(r[1] for r in rows)
+        log(f"profile {name}: {launches / TRAIN_K:.0f} kernels a step, "
+            f"{total_us / TRAIN_K / 1e3:.3f} ms of kernel time a step")
+        for key, count, us in rows[:25]:
+            log(f"  {us / TRAIN_K:9.1f} us/step {count / TRAIN_K:6.1f} "
+                f"launches/step  {key[:110]}")
+        out[name] = {"held_ms": held, "kernels_per_step": launches / TRAIN_K,
+                     "kernel_ms_per_step": total_us / TRAIN_K / 1e3,
+                     "top": rows[:25]}
+    return out
+
+
+PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train")
+
+
 def main() -> int:
+    global LOG_FILE
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=None, metavar="PHASES",
+                    help=f"comma-separated subset of {','.join(PHASES)} "
+                         "(and profile, which the full run leaves out) "
+                         "for development: runs those phases and prints "
+                         "their details, but no kernels line and no result "
+                         "line (the full run is the check)")
+    ap.add_argument("--log-file", default=None, metavar="PATH",
+                    help="also append every printed line to PATH (the "
+                         "details line outgrows what a terminal keeps)")
     args = ap.parse_args()
+    only = PHASES if args.only is None else tuple(args.only.split(","))
+    if set(only) - set(PHASES) - {"profile"}:
+        ap.error(f"--only takes {PHASES + ('profile',)}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    # deterministic cuBLAS for the train phase; read at the first matmul
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
 
+    if args.log_file is not None:
+        LOG_FILE = args.log_file
+        os.makedirs(os.path.dirname(os.path.abspath(LOG_FILE)),
+                    exist_ok=True)
     card = header()
-    entries, kdetails = kernel_checks(args.seed, dev)
-    ref = reference_check(args.seed, dev)
-    serve_launches, serve = serve_phase(args.seed, dev)
-    eval_launches, evals = eval_phase(args.seed, dev)
+    details, runs, entries = {}, {}, []
+    if "kernels" in only:
+        entries, details["kernel_checks"] = kernel_checks(args.seed, dev)
+    if "reference" in only:
+        details["reference"] = reference_check(args.seed, dev)
+    if "serve" in only:
+        runs["serve"], details["serve"] = serve_phase(args.seed, dev)
+    if "eval" in only:
+        runs["eval"], details["eval"] = eval_phase(args.seed, dev)
+    if "fused_elbo" in only:
+        runs["fused_elbo"], details["fused_elbo"] = fused_elbo_phase(
+            args.seed, dev)
+    if "train" in only:
+        train_runs, details["train"] = train_phase(args.seed, dev)
+        runs.update(train_runs)
+    if "profile" in only:
+        details["profile"] = profile_phase(args.seed, dev)
 
-    runs = {"serve": serve_launches, "eval": eval_launches}
+    log("details: " + json.dumps({**details, "launches": runs,
+                                  "torch": torch.__version__,
+                                  "cuda": torch.version.cuda}))
+    if args.only is not None:
+        log(f"partial run ({args.only}): no result line")
+        return 0
     for e in entries:
         kname = e["name"].split()[0]
-        e["launches"] = runs[e.pop("path")][kname]
-        check(e["launches"] > 0, f"{kname} not launched on its path")
-
-    log("details: " + json.dumps({
-        "kernel_checks": kdetails, "reference": ref, "serve": serve,
-        "eval": evals, "torch": torch.__version__,
-        "cuda": torch.version.cuda}))
+        e["launches_by_path"] = {path: n[kname] for path, n in runs.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
+        path = e.pop("path")
+        check(runs[path][kname] > 0, f"{kname} not launched on its path "
+                                     f"({path})")
     log(card)
-    print(json.dumps({"kernels": entries}), flush=True)
-    print(json.dumps({"ok": True, "device": {
+    log(json.dumps({"kernels": entries}))
+    log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

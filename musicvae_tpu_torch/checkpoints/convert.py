@@ -1,4 +1,4 @@
-"""JAX (flax) params → the port's state dict.
+"""JAX (flax) params, and a whole JAX train state → the port's layouts.
 
 The port's own copy of the flax → torch direction of the JAX package's
 checkpoints/torch_convert.py, for the kinds the port runs. Its output
@@ -16,7 +16,7 @@ it as it is. Layouts:
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -78,3 +78,31 @@ def flax_params_to_state_dict(params: Dict[str, Any],
     put_head("head", dec["head"])
     put_dense("z_head", params["z_head"]["Dense_0"])
     return out
+
+
+def flax_train_state_to_state_dict(cfg: Config, params: Dict[str, Any],
+                                   mu: Dict[str, Any], nu: Dict[str, Any],
+                                   count: int, step: Optional[int] = None,
+                                   ema: Optional[Dict[str, Any]] = None
+                                   ) -> Dict[str, Any]:
+    """A JAX train state → the layout of the port's
+    ``TrainState.state_dict()`` (train/trainer.py), for
+    ``TrainState.load_state_dict``: the params, an optax Adam state (its
+    ``mu`` and ``nu`` trees and its ``count``, as
+    ``optax.scale_by_adam`` keeps them) and the EMA tree, each a pytree
+    shaped like the params, as nested dicts of arrays. ``step`` defaults
+    to ``count``. The generator's state has no JAX counterpart and is
+    left out: the loading state keeps its own.
+
+    The moments go through the same layout map as the params, which is
+    linear (transposes and concatenations); the GRU's r/z hidden biases,
+    which flax does not have, get zero moments and never move."""
+    return {
+        "params": flax_params_to_state_dict(params, cfg),
+        "opt": {"mu": flax_params_to_state_dict(mu, cfg),
+                "nu": flax_params_to_state_dict(nu, cfg),
+                "count": torch.tensor(int(count), dtype=torch.int32)},
+        "step": torch.tensor(int(count if step is None else step),
+                             dtype=torch.int32),
+        "ema": None if ema is None else flax_params_to_state_dict(ema, cfg),
+    }

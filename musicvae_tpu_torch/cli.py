@@ -1,6 +1,13 @@
-"""Command line: ``python -m musicvae_tpu_torch serve``.
+"""Command line: ``python -m musicvae_tpu_torch serve`` and ``train``.
 
-Counterpart of the JAX package's cli.py ``cmd_serve`` with its default
+``train`` is the counterpart of the JAX package's cli.py ``cmd_train`` for
+the resident data path: it trains a config on a bar cache (the ``.npz`` that
+``python -m musicvae_tpu preprocess`` writes) on the card, logs JSON lines
+under ``--log-dir`` and prints the final metrics. Checkpoints, resume, MIDI
+ingestion, streaming and the sharded corpus are later items of ROADMAP.md;
+their flags are parsed and refused.
+
+``serve`` is the counterpart of ``cmd_serve`` with its default
 stdin transport (``_serve_stdin_serial``): a persistent generation service
 speaking the line-delimited JSON protocol of docs/SERVING.md.
 
@@ -22,6 +29,7 @@ import argparse
 import base64
 import dataclasses
 import json
+import os
 import sys
 import time
 import traceback
@@ -171,6 +179,110 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return serve_stream(service, sys.stdin, sys.stdout)
 
 
+# train flags of the JAX package that later slices of the port bring, with
+# the ROADMAP.md item each waits for
+_LATER_TRAIN_FLAGS = {
+    "ckpt_dir": "A8", "resume": "A8", "ckpt_every": "A8",
+    "midi_glob": "A7", "labels": "A7", "stream": "A13",
+    "host_sharded": "A13", "enc_channels": "A12", "dec_channels": "A12",
+}
+
+
+def _check_cache_grid(ds, cfg: Config, path: str) -> Optional[str]:
+    """None if the cache's quantization grid matches cfg.midi, else the
+    error string: a cache built under another meter must never feed a
+    model whose MidiSpec claims a different grid. Caches without grid
+    metadata were all built on the 24/4 default."""
+    g = ds.grid or (24, 4)
+    cache_spq = g[0]
+    cache_spb = (g[2] if len(g) > 2 else 0) or g[0] * g[1]
+    if (cache_spq, cache_spb) != (cfg.midi.steps_per_quarter,
+                                  cfg.midi.steps_per_bar):
+        return (f"{path} was quantized on grid {cache_spq} steps/quarter x "
+                f"{cache_spb} steps/bar but the config expects "
+                f"{cfg.midi.steps_per_quarter}x{cfg.midi.steps_per_bar}; "
+                f"re-run preprocess")
+    return None
+
+
+def train_config(args: argparse.Namespace) -> Config:
+    """The config a ``train`` invocation runs: the named config with the
+    command line's overrides."""
+    cfg = get_config(args.config)
+    overrides = {k: v for k, v in (
+        ("num_steps", args.steps),
+        ("batch_size", args.batch_size),
+        ("beta_schedule", args.beta_schedule),
+        ("beta_cycle_steps", args.beta_cycle_steps),
+        ("beta_warmup_steps", args.beta_warmup_steps),
+        ("free_bits", args.free_bits),
+        ("learning_rate", args.lr),
+        ("lr_schedule", args.lr_schedule),
+        ("lr_warmup_steps", args.lr_warmup_steps),
+        ("lr_min_ratio", args.lr_min_ratio),
+        ("grad_clip_norm", args.grad_clip),
+        ("ema_decay", args.ema_decay),
+        ("eval_every", args.eval_every),
+        ("eval_batches", args.eval_batches),
+        ("log_every", args.log_every),
+        ("holdout_frac", args.holdout_frac),
+        ("transpose_aug", args.transpose_aug),
+        ("corpus_layout", args.corpus_layout),
+    ) if v is not None}
+    # no checkpoints yet: their cadence must not shape the dispatch size
+    overrides["ckpt_every"] = 0
+    model = cfg.model
+    if args.use_pallas_conv1:
+        model = dataclasses.replace(model, use_pallas_conv1=True)
+    return cfg.replace(model=model,
+                       train=dataclasses.replace(cfg.train, **overrides))
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    from musicvae_tpu_torch.data.dataset import PianoRollDataset
+    from musicvae_tpu_torch.train.trainer import train
+    from musicvae_tpu_torch.utils.logging import MetricsLogger
+
+    later = [f"--{f.replace('_', '-')} (ROADMAP.md item {item})"
+             for f, item in _LATER_TRAIN_FLAGS.items()
+             if getattr(args, f) not in (None, False)]
+    if args.corpus_layout == "sharded":
+        later.append("--corpus-layout sharded (ROADMAP.md item A13)")
+    if later:
+        print(f"error: {', '.join(later)} not in the PyTorch port yet",
+              file=sys.stderr)
+        return 2
+    cfg = train_config(args)
+    if not os.path.exists(args.data):
+        print(f"error: --data {args.data} does not exist", file=sys.stderr)
+        return 2
+    ds = PianoRollDataset.load_npy(args.data)
+    if ds.num_bars != cfg.model.num_bars:
+        print(f"error: {args.data} has {ds.num_bars}-bar windows but config "
+              f"{cfg.name!r} trains on {cfg.model.num_bars}-bar windows; "
+              f"re-run preprocess with --config {cfg.name}", file=sys.stderr)
+        return 2
+    err = _check_cache_grid(ds, cfg, args.data)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
+    eval_ds = None
+    if cfg.train.eval_every > 0:
+        ds, eval_ds = ds.split(cfg.train.holdout_frac, seed=cfg.train.seed)
+        print(f"holdout: {len(eval_ds)} eval windows ({len(ds)} train), "
+              f"eval every {cfg.train.eval_every} steps", file=sys.stderr)
+    print(f"dataset: {len(ds)} windows; device: {args.device}",
+          file=sys.stderr)
+    logger = MetricsLogger(args.log_dir)
+    try:
+        _, _, metrics = train(cfg, ds, log_fn=logger, eval_data=eval_ds,
+                              device=args.device)
+    finally:
+        logger.close()
+    print(f"final metrics: { {k: float(v) for k, v in metrics.items()} }")
+    return 0
+
+
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m musicvae_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -203,6 +315,55 @@ def make_parser() -> argparse.ArgumentParser:
         p.add_argument(f"--{flag.replace('_', '-')}", action="store_true",
                        help="not in the PyTorch port yet")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("train", help="train a config on a bar cache")
+    p.add_argument("--config", default="c2_gru_4bar")
+    p.add_argument("--data", required=True,
+                   help="npz bar cache (python -m musicvae_tpu preprocess)")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--log-dir", default="logs")
+    p.add_argument("--lr", type=float, default=None,
+                   help="Adam learning rate (config default)")
+    p.add_argument("--lr-schedule", choices=["constant", "cosine"],
+                   default=None)
+    p.add_argument("--lr-warmup-steps", type=int, default=None)
+    p.add_argument("--lr-min-ratio", type=float, default=None)
+    p.add_argument("--grad-clip", type=float, default=None,
+                   help="global-norm gradient clipping (0 = off)")
+    p.add_argument("--beta-schedule", choices=["linear", "cyclical"],
+                   default=None)
+    p.add_argument("--beta-cycle-steps", type=int, default=None)
+    p.add_argument("--beta-warmup-steps", type=int, default=None)
+    p.add_argument("--free-bits", type=float, default=None,
+                   help="KL floor in nats per latent dimension (0 = off)")
+    p.add_argument("--ema-decay", type=float, default=None)
+    p.add_argument("--eval-every", type=int, default=None,
+                   help="held-out eval every N steps (0 = off)")
+    p.add_argument("--eval-batches", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=None,
+                   help="metrics log cadence in steps; also bounds the "
+                        "steps per dispatch")
+    p.add_argument("--transpose-aug", type=int, default=None,
+                   help="pitch-transpose augmentation: uniform per-example "
+                        "shift in [-K, +K] semitones per step (0 = off)")
+    p.add_argument("--holdout-frac", type=float, default=None)
+    p.add_argument("--corpus-layout", choices=["replicated", "sharded"],
+                   default=None)
+    p.add_argument("--use-pallas-conv1", action="store_true",
+                   help="first encoder conv, forward and backward, through "
+                        "the hand-written CUDA kernels")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "versions of the kernels)")
+    for flag in ("ckpt_dir", "ckpt_every", "midi_glob", "labels",
+                 "enc_channels", "dec_channels"):
+        p.add_argument(f"--{flag.replace('_', '-')}", default=None,
+                       help="not in the PyTorch port yet")
+    for flag in ("resume", "stream", "host_sharded"):
+        p.add_argument(f"--{flag.replace('_', '-')}", action="store_true",
+                       help="not in the PyTorch port yet")
+    p.set_defaults(fn=cmd_train)
     return parser
 
 

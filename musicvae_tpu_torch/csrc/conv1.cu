@@ -23,30 +23,18 @@
 // is bf16, x and w are rounded to bf16 before the multiply: the contract
 // of the TPU kernel (conv1_pallas.py `_fwd_impl`), with f32 accumulation.
 
-#include "common.cuh"
+#include "conv1.cuh"
 
 namespace mvk {
 namespace {
 
-constexpr int T_IN = 96, P_IN = 128, T_OUT = 48, P_OUT = 64;
-constexpr int ROWS = 8;                 // output rows per block
-constexpr int IN_ROWS = 2 * ROWS + 1;   // input rows staged per block
+using namespace conv1;
 constexpr int THREADS = P_OUT * ROWS;   // one thread per output (i, j)
-constexpr int TILES = T_OUT / ROWS;     // row tiles per bar
-static_assert(T_OUT % ROWS == 0, "row tiling");
-
-__device__ __forceinline__ float gelu_tanh(float z) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2/pi)
-  const float k1 = 0.044715f;
-  return 0.5f * z * (1.0f + tanhf(k0 * (z + k1 * (z * z * z))));
-}
 
 template <typename TIn, typename TOut, int C, bool ROUND_BF16>
 __global__ void __launch_bounds__(THREADS)
 conv1_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ b, TOut* __restrict__ out, int gelu) {
-  // s_even[r][j] = pitch 2j; s_odd[r][j] = pitch 2j-1 (s_odd[r][0] is the
-  // zero pad at pitch -1), for staged row r = input row 2*i0 - 1 + r
   __shared__ float s_even[IN_ROWS][P_OUT];
   __shared__ float s_odd[IN_ROWS][P_OUT + 1];
   __shared__ float s_w[9][C];
@@ -54,18 +42,8 @@ conv1_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
 
   const int m = blockIdx.x / TILES;
   const int i0 = (blockIdx.x % TILES) * ROWS;
-  const int r0 = 2 * i0 - 1;
-  const TIn* xm = x + static_cast<size_t>(m) * T_IN * P_IN;
-
-  for (int k = threadIdx.x; k < IN_ROWS * P_IN; k += THREADS) {
-    const int r = k / P_IN, p = k % P_IN, row = r0 + r;
-    // rows past the bottom never occur (2*47+1 = 95); row -1 is the pad
-    float v = row >= 0 ? to_f32(xm[row * P_IN + p]) : 0.f;
-    if (ROUND_BF16) v = round_bf16(v);
-    if (p & 1) s_odd[r][(p >> 1) + 1] = v;
-    else s_even[r][p >> 1] = v;
-  }
-  if (threadIdx.x < IN_ROWS) s_odd[threadIdx.x][0] = 0.f;
+  stage_rows<TIn, ROUND_BF16, THREADS>(
+      x + static_cast<size_t>(m) * T_IN * P_IN, i0, s_even, s_odd);
   for (int k = threadIdx.x; k < 9 * C; k += THREADS) {
     const float v = w[k];
     s_w[k / C][k % C] = ROUND_BF16 ? round_bf16(v) : v;

@@ -148,7 +148,9 @@ class BarDecoderHead(nn.Module):
                                    stride=2)[:, :, :2 * t, :2 * p]
             if i + 1 < len(self.deconvs):
                 h = _gelu(h)
-        return h[:, 0, :self.steps, :self.pitches].to(self.logits_dtype)
+        # contiguous: the crop is a view when no cast copies it (f32)
+        return h[:, 0, :self.steps, :self.pitches].to(
+            self.logits_dtype).contiguous()
 
 
 class GRUCell(nn.Module):
@@ -161,7 +163,10 @@ class GRUCell(nn.Module):
         h' = (1 − z) ⊙ n + z ⊙ h
 
     Flax has no b_hr/b_hz; a converted checkpoint holds them as zeros with
-    flax's r/z biases folded into b_ir/b_iz."""
+    flax's r/z biases folded into b_ir/b_iz. They are constants here too:
+    no gradient reaches them, so training moves b_ir/b_iz alone, as it
+    moves flax's single r/z biases (two trained copies of one bias would
+    move it twice as fast under Adam)."""
 
     def __init__(self, input_size: int, hidden: int,
                  dtype: str = "bfloat16"):
@@ -179,7 +184,11 @@ class GRUCell(nn.Module):
         dt = self.compute_dtype
         h = h.to(dt)
         gi = F.linear(x.to(dt), self.weight_ih.to(dt), self.bias_ih.to(dt))
-        gh = F.linear(h, self.weight_hh.to(dt), self.bias_hh.to(dt))
+        bias_hh = self.bias_hh
+        if torch.is_grad_enabled() and bias_hh.requires_grad:
+            rz = 2 * bias_hh.shape[0] // 3
+            bias_hh = torch.cat([bias_hh[:rz].detach(), bias_hh[rz:]])
+        gh = F.linear(h, self.weight_hh.to(dt), bias_hh.to(dt))
         i_r, i_z, i_n = gi.chunk(3, dim=-1)
         h_r, h_z, h_n = gh.chunk(3, dim=-1)
         r = torch.sigmoid(i_r + h_r)

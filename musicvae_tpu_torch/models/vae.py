@@ -20,6 +20,7 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from musicvae_tpu_torch.config import Config, MidiSpec, ModelSpec
 from musicvae_tpu_torch.midi.tensorize import pitch_mask
@@ -117,10 +118,17 @@ class BarDecoder(nn.Module):
 
 
 class PianoRollVAE(BarDecoder):
-    """Encoder + reparameterized latent + the decoder."""
+    """Encoder + reparameterized latent + the decoder.
 
-    def __init__(self, spec: ModelSpec, midi: MidiSpec):
+    ``remat_encoder`` (TrainSpec.remat_encoder): under autograd the per-bar
+    encoder features are recomputed in the backward pass instead of being
+    kept (the JAX package wraps the same module in ``nn.remat``). The
+    values and gradients are the same either way."""
+
+    def __init__(self, spec: ModelSpec, midi: MidiSpec,
+                 remat_encoder: bool = False):
         super().__init__(spec, midi)
+        self.remat_encoder = remat_encoder
         t, p = midi.steps_per_bar, midi.num_pitches
         self.enc_feat = layers.BarFeat(
             spec.bar_feat_dim, spec.enc_channels, spec.dtype,
@@ -133,7 +141,14 @@ class PianoRollVAE(BarDecoder):
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Posterior (mu, logvar), each f32 [B,z], of x [B,N,T,P]."""
         b, n, t, p = x.shape
-        f = self.enc_feat(x.reshape(b * n, t, p)).reshape(b, n, -1)
+        bars = x.reshape(b * n, t, p)
+        if self.remat_encoder and torch.is_grad_enabled():
+            # no random op inside: no generator state to save and restore
+            f = checkpoint(self.enc_feat, bars, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            f = self.enc_feat(bars)
+        f = f.reshape(b, n, -1)
         h = torch.zeros(b, self.spec.gru_hidden, dtype=self.compute_dtype,
                         device=x.device)
         for k in range(n):
@@ -205,6 +220,7 @@ def build_model(cfg: Config, device="cuda",
     with ctx:
         if seed is not None:
             torch.manual_seed(seed)
-        model = PianoRollVAE(cfg.model, cfg.midi)
+        model = PianoRollVAE(cfg.model, cfg.midi,
+                             cfg.train.remat_encoder)
         init_like_flax(model)
     return model.to(dev).eval()

@@ -37,7 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # element-kind codes of the C entry points (csrc/common.cuh mvk::Kind)
 KINDS = {torch.uint8: 0, torch.bfloat16: 1, torch.float32: 2}
 
-LAUNCHES = {"first_conv_s2": 0, "masked_bce_sum": 0}
+LAUNCHES = {"first_conv_s2": 0, "first_conv_s2_bwd": 0, "masked_bce_sum": 0,
+            "masked_bce_sum_dual": 0, "masked_bce_bwd": 0, "kl_sum": 0,
+            "kl_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -115,10 +117,18 @@ def lib() -> ctypes.CDLL:
             handle = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             handle.mvk_first_conv_s2.argtypes = [p, i, p, p, p, i, i, i, i, p]
-            handle.mvk_first_conv_s2.restype = i
+            handle.mvk_first_conv_s2_bwd.argtypes = [p, i, p, p, p, i, p, p,
+                                                     i, i, i, p]
             handle.mvk_masked_bce_sum.argtypes = [p, i, p, i, p, p, p, ll, i,
                                                   i, p]
-            handle.mvk_masked_bce_sum.restype = i
+            handle.mvk_masked_bce_sum_dual.argtypes = [p, i, p, i, p, p, p, p,
+                                                       ll, i, i, p]
+            handle.mvk_masked_bce_bwd.argtypes = [p, i, p, i, p, p, p, ll, i,
+                                                  i, p]
+            handle.mvk_kl_sum.argtypes = [p, p, i, p, ll, p]
+            handle.mvk_kl_bwd.argtypes = [p, p, i, p, p, p, ll, i, p]
+            for name in LAUNCHES:       # one C entry point per kernel
+                getattr(handle, "mvk_" + name).restype = i
             _lib = handle
         return _lib
 

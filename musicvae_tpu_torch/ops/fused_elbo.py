@@ -1,22 +1,37 @@
-"""The grad-free masked BCE sum through a hand-written CUDA kernel
-(csrc/masked_bce.cu).
+"""The masked BCE sum and the Gaussian KL sum of the ELBO through
+hand-written CUDA kernels (csrc/masked_bce.cu, csrc/kl.cu).
 
-Counterpart of the JAX package's ops/fused_elbo.py ``masked_bce_sum_pallas``
-forward, the eval scoring kernel. ``masked_bce_sum`` launches the kernel for
-a CUDA tensor and takes the plain version, ops/losses.py
-``masked_bce_sum``, only for a CPU tensor. The training kernels (the
-dual-output forward, the backward and the KL pair) come with training.
+Counterpart of the JAX package's ops/fused_elbo.py, with its five kernels:
+
+- ``masked_bce_sum``: the single-output forward (the eval scoring kernel);
+  differentiated, its backward launches the backward kernel, which reads
+  the logits again;
+- ``masked_bce_sum_dual``: the same sum plus the gradient tile
+  (σ(l) − x)·mask from one pass over the logits, for differentiated graphs
+  (the train step); its backward is one scale of the saved f32 tile;
+- ``kl_sum``: the KL sum forward and backward kernels;
+- ``fused_elbo``: the drop-in for ops/losses.py ``elbo_loss``.
+
+Each function launches its kernel for a CUDA tensor and takes its plain
+version only for a CPU tensor: ops/losses.py for the sums, the ``_plain``
+functions below for the gradients. The cotangents for the targets and the
+mask are a cold path (the targets are data, the mask a constant) and stay
+plain torch on either device, computed only when asked for.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+from torch.autograd.function import once_differentiable
 
 from musicvae_tpu_torch.ops import _kernels, losses
 
 _THREADS = 256                # csrc/masked_bce.cu THREADS
 _CELLS_PER_THREAD = 16        # 4 grid-stride steps of 4 cells
 _MAX_BLOCKS = 1024
+_KL_BWD_THREADS = 256         # csrc/kl.cu BWD_THREADS
 
 
 def partial_blocks(n: int) -> int:
@@ -26,19 +41,17 @@ def partial_blocks(n: int) -> int:
     return max(1, min(-(-n // per_block), _MAX_BLOCKS))
 
 
-def masked_bce_sum(logits: torch.Tensor, x: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
-    """sum(mask * bce_with_logits(logits, x)) over all cells, as an f32
-    0-d tensor on the logits' device.
+def _on_cpu(name: str, t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version), False for a CUDA tensor
+    (the kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
 
-    logits [..., P] f32 or bf16; x of the same shape, f32, bf16 or uint8;
-    mask [P] f32 (the pitch-crop mask)."""
-    if logits.device.type == "cpu":
-        return losses.masked_bce_sum(logits, x, mask)
-    if logits.device.type != "cuda":
-        raise ValueError(f"masked_bce_sum: unsupported device "
-                         f"{logits.device}")
-    name = "masked_bce_sum"
+
+def _check_bce(name: str, logits, x, mask) -> None:
     p = logits.shape[-1]
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: logits dtype {logits.dtype} not f32/bf16")
@@ -53,14 +66,211 @@ def masked_bce_sum(logits: torch.Tensor, x: torch.Tensor,
                          f"{mask.dtype} {tuple(mask.shape)}")
     _kernels.check_cuda_inputs(name, logits.device, logits=logits, x=x,
                                mask=mask)
-    n = logits.numel()
+
+
+# -- forward and backward of the BCE sum: kernel or plain, by device ---------
+
+def _bce_sum(logits, x, mask, dual: bool):
+    """(sum, tile or None). The kernels on a CUDA tensor."""
+    name = "masked_bce_sum_dual" if dual else "masked_bce_sum"
+    if _on_cpu(name, logits):
+        total = losses.masked_bce_sum(logits, x, mask)
+        return total, (bce_grad_tile_plain(logits, x, mask) if dual else None)
+    _check_bce(name, logits, x, mask)
+    n, p = logits.numel(), logits.shape[-1]
     blocks = partial_blocks(n)
-    partials = torch.empty(blocks, dtype=torch.float32, device=logits.device)
-    out = torch.empty((), dtype=torch.float32, device=logits.device)
-    rc = _kernels.lib().mvk_masked_bce_sum(
+    dev = logits.device
+    partials = torch.empty(blocks, dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    args = (logits.data_ptr(), _kernels.KINDS[logits.dtype], x.data_ptr(),
+            _kernels.KINDS[x.dtype], mask.data_ptr(), partials.data_ptr(),
+            out.data_ptr())
+    tail = (n, p, blocks, _kernels.stream_of(logits))
+    if dual:
+        tile = torch.empty(logits.shape, dtype=torch.float32, device=dev)
+        rc = _kernels.lib().mvk_masked_bce_sum_dual(*args, tile.data_ptr(),
+                                                    *tail)
+    else:
+        tile = None
+        rc = _kernels.lib().mvk_masked_bce_sum(*args, *tail)
+    _kernels.check(rc, name)
+    _kernels.LAUNCHES[name] += 1
+    return out, tile
+
+
+def bce_grad_tile_plain(logits, x, mask) -> torch.Tensor:
+    """Plain version of the dual kernel's second output: (σ(l) − x)·mask,
+    f32, in the logits' shape."""
+    return (torch.sigmoid(logits.float()) - x.float()) * mask
+
+
+def masked_bce_bwd_plain(logits, x, mask, g) -> torch.Tensor:
+    """Plain version of the backward kernel: (σ(l) − x)·mask·g in the
+    logits' dtype, the arithmetic in f32."""
+    return (bce_grad_tile_plain(logits, x, mask) * g).to(logits.dtype)
+
+
+def _bce_bwd(logits, x, mask, g):
+    name = "masked_bce_bwd"
+    if _on_cpu(name, logits):
+        return masked_bce_bwd_plain(logits, x, mask, g)
+    _check_bce(name, logits, x, mask)
+    g = g.to(torch.float32).contiguous()
+    _kernels.check_cuda_inputs(name, logits.device, g=g)
+    n, p = logits.numel(), logits.shape[-1]
+    dl = torch.empty_like(logits)
+    rc = _kernels.lib().mvk_masked_bce_bwd(
         logits.data_ptr(), _kernels.KINDS[logits.dtype], x.data_ptr(),
-        _kernels.KINDS[x.dtype], mask.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), n, p, blocks, _kernels.stream_of(logits))
+        _kernels.KINDS[x.dtype], mask.data_ptr(), g.data_ptr(),
+        dl.data_ptr(), n, p, partial_blocks(n), _kernels.stream_of(logits))
+    _kernels.check(rc, name)
+    _kernels.LAUNCHES[name] += 1
+    return dl
+
+
+def _xmask_cotangents(ctx, logits, x, mask, g):
+    """Cotangents for the targets and the mask, each only when asked for:
+    the per-cell term is bce(l, x)·mask, so d/dx = −l·mask and d/dmask =
+    bce(l, x) summed over all but the pitch axis."""
+    dx = dmask = None
+    if ctx.needs_input_grad[1]:
+        dx = (-logits.float() * mask * g).to(x.dtype)
+    if ctx.needs_input_grad[2]:
+        bce_g = losses.bce_with_logits(logits, x) * g
+        dmask = bce_g.reshape(-1, mask.shape[0]).sum(dim=0).to(mask.dtype)
+    return dx, dmask
+
+
+class _MaskedBCESum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, x, mask):
+        ctx.save_for_backward(logits, x, mask)
+        return _bce_sum(logits, x, mask, dual=False)[0]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        logits, x, mask = ctx.saved_tensors
+        dl = _bce_bwd(logits, x, mask, g) if ctx.needs_input_grad[0] \
+            else None
+        return (dl, *_xmask_cotangents(ctx, logits, x, mask, g))
+
+
+class _MaskedBCESumDual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, x, mask):
+        total, tile = _bce_sum(logits, x, mask, dual=True)
+        ctx.save_for_backward(tile, logits, x, mask)
+        return total
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        tile, logits, x, mask = ctx.saved_tensors
+        # the hot path: one scale of the saved f32 tile, then the cast
+        dl = (tile * g).to(logits.dtype) if ctx.needs_input_grad[0] else None
+        return (dl, *_xmask_cotangents(ctx, logits, x, mask, g))
+
+
+def masked_bce_sum(logits: torch.Tensor, x: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """sum(mask * bce_with_logits(logits, x)) over all cells, as an f32
+    0-d tensor on the logits' device.
+
+    logits [..., P] f32 or bf16; x of the same shape, f32, bf16 or uint8;
+    mask [P] f32 (the pitch-crop mask). Differentiable: the backward for
+    the logits is a second kernel that reads them again. Grad-free callers
+    (eval) pay the forward alone."""
+    return _MaskedBCESum.apply(logits, x, mask)
+
+
+def masked_bce_sum_dual(logits: torch.Tensor, x: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """``masked_bce_sum`` with the gradient tile computed in the forward
+    pass and saved in f32. For differentiated graphs (the train step);
+    grad-free callers keep ``masked_bce_sum``, which skips the tile's
+    write."""
+    return _MaskedBCESumDual.apply(logits, x, mask)
+
+
+# -- the KL sum ---------------------------------------------------------------
+
+def _check_kl(name: str, mu, logvar) -> None:
+    if mu.dtype not in (torch.float32, torch.bfloat16) \
+            or logvar.dtype != mu.dtype:
+        raise ValueError(f"{name}: mu and logvar must both be f32 or both "
+                         f"bf16, got {mu.dtype} and {logvar.dtype}")
+    if mu.shape != logvar.shape:
+        raise ValueError(f"{name}: mu {tuple(mu.shape)} and logvar "
+                         f"{tuple(logvar.shape)} differ")
+    _kernels.check_cuda_inputs(name, mu.device, mu=mu, logvar=logvar)
+
+
+def kl_bwd_plain(mu, logvar, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the KL backward kernel: dmu = mu·g, dlv =
+    0.5·(exp(lv) − 1)·g, f32 arithmetic, the inputs' dtypes out."""
+    dmu = (mu.float() * g).to(mu.dtype)
+    dlv = (0.5 * (torch.exp(logvar.float()) - 1.0) * g).to(logvar.dtype)
+    return dmu, dlv
+
+
+def _kl_fwd(mu, logvar):
+    name = "kl_sum"
+    if _on_cpu(name, mu):
+        return losses.kl_diag_gaussian(mu.float(), logvar.float())
+    _check_kl(name, mu, logvar)
+    out = torch.empty((), dtype=torch.float32, device=mu.device)
+    rc = _kernels.lib().mvk_kl_sum(
+        mu.data_ptr(), logvar.data_ptr(), _kernels.KINDS[mu.dtype],
+        out.data_ptr(), mu.numel(), _kernels.stream_of(mu))
     _kernels.check(rc, name)
     _kernels.LAUNCHES[name] += 1
     return out
+
+
+def _kl_bwd(mu, logvar, g):
+    name = "kl_bwd"
+    if _on_cpu(name, mu):
+        return kl_bwd_plain(mu, logvar, g)
+    _check_kl(name, mu, logvar)
+    g = g.to(torch.float32).contiguous()
+    _kernels.check_cuda_inputs(name, mu.device, g=g)
+    dmu, dlv = torch.empty_like(mu), torch.empty_like(logvar)
+    n = mu.numel()
+    rc = _kernels.lib().mvk_kl_bwd(
+        mu.data_ptr(), logvar.data_ptr(), _kernels.KINDS[mu.dtype],
+        g.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n,
+        max(1, -(-n // _KL_BWD_THREADS)), _kernels.stream_of(mu))
+    _kernels.check(rc, name)
+    _kernels.LAUNCHES[name] += 1
+    return dmu, dlv
+
+
+class _KLSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mu, logvar):
+        ctx.save_for_backward(mu, logvar)
+        return _kl_fwd(mu, logvar)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _kl_bwd(*ctx.saved_tensors, g)
+
+
+def kl_sum(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """KL(N(mu, diag(exp(logvar))) || N(0, I)) summed over all axes, an f32
+    0-d tensor. mu, logvar: any [..., z] shape, both f32 or both bf16; the
+    arithmetic is f32 and the gradients come back in the inputs' dtype."""
+    return _KLSum.apply(mu, logvar)
+
+
+def fused_elbo(logits, x, mask, mu, logvar, beta) -> Tuple[torch.Tensor,
+                                                           dict]:
+    """Drop-in for ops/losses.py ``elbo_loss`` (same conventions) through
+    the single-output BCE kernel and the KL kernel, forward and backward."""
+    batch = logits.shape[0]
+    recon = masked_bce_sum(logits, x, mask) / batch
+    kl = kl_sum(mu, logvar) / batch
+    loss = recon + beta * kl
+    return loss, {"loss": loss, "recon": recon, "kl": kl, "beta": beta}

@@ -24,7 +24,18 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "musicvae_tpu"))
-print(len(names), ",".join(bad))
+print(" ".join(names), "|", ",".join(bad))
+"""
+
+_NEW_MODULES = ("train.trainer", "data.dataset", "utils.logging",
+                "ops.augment", "ops.fused_elbo", "ops.conv1")
+
+_IMPORT_SMOKE = """
+import sys
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "musicvae_tpu"))
+print(",".join(bad))
 """
 
 
@@ -33,13 +44,17 @@ def test_no_module_imports_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, _, bad = out.stdout.strip().partition(" ")
-    assert int(n) >= 15, out.stdout
-    assert bad == "", f"imports {bad}"
+    names, _, bad = out.stdout.strip().partition(" | ")
+    names = names.split()
+    assert len(names) >= 22, out.stdout
+    for mod in _NEW_MODULES:        # imported with no nvcc and no GPU here
+        assert f"musicvae_tpu_torch.{mod}" in names, mod
+    assert bad.strip() == "", f"imports {bad}"
 
 
 def test_no_source_file_mentions_jax_imports():
-    for path in (REPO / "musicvae_tpu_torch").rglob("*.py"):
+    for path in [*(REPO / "musicvae_tpu_torch").rglob("*.py"),
+                 REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
@@ -56,3 +71,31 @@ def test_cuda_entry_points_raise_without_gpu():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="is_available"):
         main(["serve", "--bars", "1", "--samples", "1"])
+
+
+def _run(args, **kw):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *args], env=env,
+                          capture_output=True, text=True, timeout=120, **kw)
+
+
+def test_chip_smoke_imports_without_jax_nvcc_or_gpu():
+    out = _run(["-c", _IMPORT_SMOKE], cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"imports {out.stdout}"
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the smoke run would start")
+    out = _run(["chip_smoke.py"], cwd=REPO)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "is_available" in out.stderr
+
+
+def test_train_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the entry points would run on it")
+    from musicvae_tpu_torch.train.trainer import create_state
+    with pytest.raises(RuntimeError, match="is_available"):
+        create_state(get_config("c2_gru_4bar"))
