@@ -123,16 +123,23 @@ def held_ms(fn, spin_cycles: int = SPIN_CYCLES, strict: bool = True):
     return start.elapsed_time(end)
 
 
-def time_ms(fn, flush: torch.Tensor, iters: int = 30) -> float:
+def time_ms(fn, flush: torch.Tensor, iters: int = 30,
+            dirty: bool = True) -> float:
     """Mean device time of one call of ``fn`` (``held_ms``), each call
-    from a cold L2: ``flush``, larger than L2, is overwritten first. A
-    sample in which the host was too slow to stay behind the spin (a busy
-    host) is taken again; the run fails if that happens ``iters`` times."""
+    from a cold L2: ``flush``, larger than L2, is overwritten first, so L2
+    holds dirty lines that the call's own traffic must write back, as it
+    finds them after other kernels (``dirty=False`` reads ``flush``
+    instead, leaving L2 clean). A sample in which the host was too slow to
+    stay behind the spin (a busy host) is taken again; the run fails if
+    that happens ``iters`` times."""
     for _ in range(3):
         fn()
     samples, missed = [], 0
     while len(samples) < iters:
-        flush.zero_()
+        if dirty:
+            flush.zero_()
+        else:
+            flush.max()
         ms = held_ms(fn, strict=False)
         if ms is None:
             missed += 1
@@ -141,6 +148,26 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 30) -> float:
         else:
             samples.append(ms)
     return sum(samples) / iters
+
+
+def kernel_only_ms(fn, flush: torch.Tensor, match: str, reps: int = 10):
+    """Device time of the kernels of one call of ``fn`` whose names contain
+    ``match``, from torch.profiler (CUPTI), each call from the same cold L2
+    as ``time_ms``: the kernels' own time, without the launch and event
+    latency that ``time_ms`` includes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if match in e.key and e.device_time_total > 0)
+    check(us > 0, f"torch.profiler recorded no {match} kernel")
+    return us / reps / 1e3
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -176,53 +203,180 @@ def header():
     return card
 
 
+def _demangle(names):
+    """Readable names for mangled kernel symbols (c++filt or cu++filt where
+    the machine has one; the mangled names otherwise)."""
+    for tool in ("c++filt", "/usr/local/cuda/bin/cu++filt"):
+        try:
+            out = subprocess.run([tool], input="\n".join(names),
+                                 capture_output=True, text=True, timeout=60)
+        except (OSError, subprocess.TimeoutExpired):
+            continue
+        lines = out.stdout.splitlines()
+        if out.returncode == 0 and len(lines) == len(names):
+            return dict(zip(names, lines))
+    return {n: n for n in names}
+
+
+def _ptxas_report(log_text: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel
+    instantiation, from ``nvcc -Xptxas -v``'s log."""
+    rep, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = rep.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return rep
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)([.A-Z0-9_]*)\s*([^;]*);")
+
+
+def _sass_report(lib_path: str) -> dict:
+    """For each kernel in the library, cuobjdump's SASS: the instruction
+    count, and the largest loop (a backward branch's span) with its count
+    by opcode. Empty where the toolkit has no cuobjdump."""
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        return {"error": out.stderr[-500:]}
+    rep, name, instrs = {}, None, []
+
+    def close():
+        if name is None:
+            return
+        loops = []
+        for k, (addr, op, _, args) in enumerate(instrs):
+            t = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+            if t and int(t.group(1), 16) < addr:
+                start = next(i for i, x in enumerate(instrs)
+                             if x[0] >= int(t.group(1), 16))
+                loops.append(instrs[start:k + 1])
+        def hist(body):
+            h = {}
+            for _, op, sfx, _ in body:
+                key = op + sfx if op in ("MUFU", "HMMA", "LDS", "STG") \
+                    else op
+                h[key] = h.get(key, 0) + 1
+            return dict(sorted(h.items(), key=lambda kv: -kv[1]))
+
+        main = max(loops, key=len) if loops else []
+        rep[name] = {"instructions": len(instrs),
+                     "main_loop_instructions": len(main),
+                     "main_loop_ops": hist(main),
+                     "loops": [{"instructions": len(lp), "ops": hist(lp)}
+                               for lp in loops]}
+
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            name, instrs = m.group(1), []
+            continue
+        m = _SASS_LINE.search(line)
+        if m and name is not None:
+            instrs.append((int(m.group(1), 16), m.group(2), m.group(3),
+                           m.group(4)))
+    close()
+    return rep
+
+
+def conv1_build_report() -> dict:
+    """ptxas and SASS numbers of every first-conv kernel instantiation
+    (conv1.cu, conv1_bwd.cu), keyed by readable name; every loop's counts
+    for the main path's (uint8 x, bf16 out or dy, C=16)."""
+    from musicvae_tpu_torch.ops import _kernels
+
+    ptxas = _ptxas_report(_kernels.build_info.get("log", ""))
+    sass = _sass_report(_kernels.build_info["path"])
+    names = _demangle(sorted(set(ptxas) | set(sass) - {"error"}))
+    rep = {}
+    for mangled, readable in names.items():
+        if "conv1" not in readable:
+            continue
+        short = re.sub(r"^void |\(.*\)$", "", readable.replace(
+            "(anonymous namespace)::", "").replace("mvk::", ""))
+        rep[short] = {**ptxas.get(mangled, {}), **sass.get(mangled, {})}
+        if "unsigned char, __nv_bfloat16, 16" not in short:
+            rep[short].pop("loops", None)     # every loop: main path only
+        log(f"  build {short}: {rep[short]}")
+    if "error" in sass:
+        log(f"  cuobjdump failed: {sass['error']}")
+    return rep
+
+
 def _case_log(tag: str, case: dict, details: dict, key: str) -> None:
     details[key].append(case)
     log(f"{tag} {case}")
 
 
-def _k1_checks(g, dev, w, b, details):
+def _k1_checks(g, dev, wb, details):
+    """The first conv's forward kernel against its plain version for every
+    C the wrapper takes, at the serve shape (M=4), a ragged M and the
+    train/eval shape (M=256), both x types and both output types.
+    Tolerance 1e-5 (+1e-5 relative) for f32 output; 1e-2 for bf16 (one
+    bf16 step where the two f32 GELUs round to either side)."""
     from musicvae_tpu_torch.ops import conv1
 
     err = {}
-    for m in (4, 256):
-        for x_dtype in (torch.uint8, torch.bfloat16):
-            x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.1)
-            x = x.to(x_dtype)
-            for out_dtype, tol in ((torch.float32, 1e-5),
-                                   (torch.bfloat16, 1e-2)):
-                got = conv1.first_conv_s2(x, w, b, True, out_dtype).float()
-                ref = conv1.first_conv_s2_ref(x, w, b, True,
-                                              out_dtype).float()
-                diff = (got - ref).abs()
-                case = dict(m=m, x=str(x_dtype), out=str(out_dtype),
-                            max_abs_err=float(diff.max()),
-                            max_rel_err=float(
-                                (diff / ref.abs().clamp_min(1e-6)).max()),
-                            tol=tol,
-                            ok=bool((diff <= tol + tol * ref.abs()).all()))
-                _case_log("K1 first_conv_s2", case, details, "k1")
-                check(case["ok"], f"K1 disagrees with its plain version: "
-                                  f"{case}")
-                err[(m, x_dtype, out_dtype)] = case["max_abs_err"]
+    for c, (w, b) in wb.items():
+        for m in (4, 5, 256):
+            for x_dtype in (torch.uint8, torch.bfloat16):
+                x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.1)
+                x = x.to(x_dtype)
+                for out_dtype, tol in ((torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)):
+                    got = conv1.first_conv_s2(x, w, b, True, out_dtype).float()
+                    ref = conv1.first_conv_s2_ref(x, w, b, True,
+                                                  out_dtype).float()
+                    diff = (got - ref).abs()
+                    case = dict(c=c, m=m, x=str(x_dtype), out=str(out_dtype),
+                                max_abs_err=float(diff.max()),
+                                max_rel_err=float(
+                                    (diff / ref.abs().clamp_min(1e-6)).max()),
+                                tol=tol,
+                                ok=bool((diff <= tol + tol * ref.abs()).all()))
+                    _case_log("K1 first_conv_s2", case, details, "k1")
+                    check(case["ok"], f"K1 disagrees with its plain version: "
+                                      f"{case}")
+                    err[(c, m, x_dtype, out_dtype)] = case["max_abs_err"]
     return err
 
 
-def _k1b_checks(g, dev, w, b, details):
+def _k1b_checks(g, dev, wb, details):
     """The first conv's backward kernel against autograd through the plain
-    forward (cuDNN's f32 backward on the card, TF32 off). Tolerance as the
-    JAX package's own test: atol 1e-3 + rtol 1e-3."""
+    forward (cuDNN's f32 backward on the card, TF32 off), for every C, at
+    M=4, a ragged M and M=256, both x types and both dy types, and once
+    without the GELU. Tolerance as the JAX package's own test: atol 1e-3 +
+    rtol 1e-3; two calls must give the same bits."""
     from musicvae_tpu_torch.ops import conv1
 
     err = {}
-    cases = [(m, xd, od, True) for m in (5, 256)
+    cases = [(c, m, xd, od, True) for c in wb for m in (4, 5, 256)
              for xd in (torch.uint8, torch.bfloat16)
              for od in (torch.float32, torch.bfloat16)]
-    cases.append((5, torch.uint8, torch.float32, False))
-    for m, x_dtype, out_dtype, gelu in cases:
+    cases += [(c, 5, torch.uint8, torch.float32, False) for c in wb]
+    for c, m, x_dtype, out_dtype, gelu in cases:
+        w, b = wb[c]
         x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.1
              ).to(x_dtype)
-        dy = torch.randn((m, 48, 64, w.shape[-1]), generator=g,
+        dy = torch.randn((m, 48, 64, c), generator=g,
                          device=dev).to(out_dtype)
         outs = []
         for _ in range(2):
@@ -232,7 +386,7 @@ def _k1b_checks(g, dev, w, b, details):
             outs.append(torch.autograd.grad(y, (wl, bl), dy))
         (dw, db), (dw2, db2) = outs
         rw, rb = conv1.first_conv_s2_bwd_ref(x, w, b, dy, gelu)
-        case = dict(m=m, x=str(x_dtype), dy=str(out_dtype), gelu=gelu)
+        case = dict(c=c, m=m, x=str(x_dtype), dy=str(out_dtype), gelu=gelu)
         ok = True
         for nm, got, ref in (("dw", dw, rw), ("db", db, rb)):
             diff = (got - ref).abs()
@@ -246,9 +400,72 @@ def _k1b_checks(g, dev, w, b, details):
         _case_log("K1b first_conv_s2_bwd", case, details, "k1b")
         check(ok, f"K1b disagrees with its plain version: {case}")
         check(case["same_bits_twice"], f"K1b is not deterministic: {case}")
-        err[(m, x_dtype, out_dtype, gelu)] = max(case["dw_max_abs_err"],
-                                                 case["db_max_abs_err"])
+        err[(c, m, x_dtype, out_dtype, gelu)] = max(case["dw_max_abs_err"],
+                                                    case["db_max_abs_err"])
     return err
+
+
+def _conv1_geometry_check():
+    """ops/conv1.py's mirror of the first-conv kernels' launch geometry
+    against the C side's, which sizes the launches (the wrapper sizes the
+    backward's partials from the mirror)."""
+    import ctypes
+
+    from musicvae_tpu_torch.ops import _kernels, conv1
+
+    fn = _kernels.lib().mvk_first_conv_s2_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    cases = []
+    for m in (1, 2, 4, 5, 9, 64, 256, 1024):
+        for c in conv1.CHANNELS:
+            geo = (ctypes.c_int * 5)()
+            fn(m, c, geo)
+            cases.append((m, c, tuple(geo), tuple(conv1.geometry(m, c))))
+    bad = [cs for cs in cases if cs[2] != cs[3]]
+    log(f"first-conv geometry: C and Python agree in {len(cases) - len(bad)} "
+        f"of {len(cases)} (m, c); M=256, C=16: {conv1.geometry(256, 16)}; "
+        f"M=4, C=16: {conv1.geometry(4, 16)}")
+    check(not bad, f"first-conv geometry differs (m, c, C, Python): {bad}")
+    # the grids assume their blocks all fit on the card at once
+    lib = _kernels.lib()
+    resident = {}
+    for c in conv1.CHANNELS:
+        fwd = lib.mvk_first_conv_s2_resident(256, c)
+        bwd = lib.mvk_first_conv_s2_bwd_resident(256, c)
+        resident[c] = (fwd, bwd)
+        check(fwd >= conv1.FWD_BLOCKS // 132 and bwd >= conv1.BWD_BLOCKS
+              // 132, f"C={c}: {fwd} forward and {bwd} backward blocks fit "
+                      f"an SM, the grids assume {conv1.FWD_BLOCKS // 132} "
+                      f"and {conv1.BWD_BLOCKS // 132}")
+    log(f"first-conv blocks resident an SM (forward, backward) by C at "
+        f"M=256: {resident}")
+    return {"geometry": {f"{m},{c}": list(py) for m, c, _, py in cases},
+            "resident_blocks": resident}
+
+
+def _conv1_dy_layout(dev, w, b):
+    """Whether the gradient reaching the first conv's backward in the
+    model's trunk (the kernel's NHWC output, viewed NCHW, into a bf16 cuDNN
+    conv) is already contiguous NHWC, so that ``dy.contiguous()`` copies
+    nothing."""
+    import torch.nn.functional as F
+
+    from musicvae_tpu_torch.ops import conv1
+
+    x = torch.zeros((8, 96, 128), dtype=torch.uint8, device=dev)
+    w2 = torch.randn((32, w.shape[-1], 3, 3), device=dev,
+                     dtype=torch.bfloat16)
+    seen = []
+    wl = w.clone().requires_grad_(True)
+    h = conv1.first_conv_s2(x, wl, b, True, torch.bfloat16)
+    h.register_hook(lambda grad: seen.append(
+        (grad.is_contiguous(), list(grad.stride()))))
+    F.conv2d(h.permute(0, 3, 1, 2), w2, stride=2, padding=1).float().sum(
+    ).backward()
+    out = {"contiguous": seen[0][0], "stride": seen[0][1]}
+    log(f"K1b dy as the trunk hands it over: {out}")
+    return out
 
 
 def _bce_checks(g, dev, details):
@@ -390,11 +607,16 @@ def kernel_checks(seed: int, dev: torch.device):
 
     g = torch.Generator(dev).manual_seed(seed)
     details = {"k1": [], "k1b": [], "k2": [], "k34": [], "k56": []}
-    c = 16
-    w = torch.randn((3, 3, c), generator=g, device=dev) / 3.0
-    b = 0.1 * torch.randn(c, generator=g, device=dev)
-    k1_err = _k1_checks(g, dev, w, b, details)
-    k1b_err = _k1b_checks(g, dev, w, b, details)
+    wb = {cc: (torch.randn((3, 3, cc), generator=g, device=dev) / 3.0,
+               0.1 * torch.randn(cc, generator=g, device=dev))
+          for cc in conv1.CHANNELS}
+    c = 16                              # the main path's width
+    w, b = wb[c]
+    details["conv1_build"] = build = conv1_build_report()
+    details["conv1_geometry"] = _conv1_geometry_check()
+    k1_err = _k1_checks(g, dev, wb, details)
+    k1b_err = _k1b_checks(g, dev, wb, details)
+    details["k1b_dy_layout"] = _conv1_dy_layout(dev, w, b)
     bce_err = _bce_checks(g, dev, details)
     kl_err = _kl_checks(g, dev, details)
 
@@ -412,7 +634,11 @@ def kernel_checks(seed: int, dev: torch.device):
         lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
         log(f"timing {name}: kernel {ms * 1e3:.2f} us, plain "
             f"{plain * 1e3:.2f} us, library {lib}, bound {bms * 1e3:.2f} us "
-            f"({by})")
+            f"({by})" + "".join(
+                f", {k[:-3].replace('_', ' ')} {extra[k] * 1e3:.2f} us"
+                for k in ("gelu_off_ms", "clean_l2_ms", "memory_floor_ms",
+                          "kernel_only_ms")
+                if k in extra))
         return e
 
     entries = []
@@ -426,14 +652,23 @@ def kernel_checks(seed: int, dev: torch.device):
         outs = m * 48 * 64 * c
         bms, by = bound_ms(x.numel() + 4 * (w.numel() + b.numel()) + 2 * outs,
                            outs * (2 * 9 + 1 + 8))
+        out_like = torch.empty((m, 48, 64, c), dtype=torch.bfloat16,
+                               device=dev)
         k1_timed[m] = dict(
             ms=time_ms(lambda: conv1.first_conv_s2(x, w, b), flush),
+            gelu_off_ms=time_ms(lambda: conv1.first_conv_s2(x, w, b, False),
+                                flush),
+            clean_l2_ms=time_ms(lambda: conv1.first_conv_s2(x, w, b), flush,
+                                dirty=False),
+            kernel_only_ms=kernel_only_ms(
+                lambda: conv1.first_conv_s2(x, w, b), flush, "conv1_kernel"),
+            memory_floor_ms=time_ms(out_like.zero_, flush),
             plain_ms=time_ms(lambda: conv1.first_conv_s2_ref(x, w, b), flush),
             library_ms=time_ms(lambda: F.gelu(F.conv2d(
                 x_nchw, w_lib, b_lib, stride=2, padding=1),
                 approximate="tanh"), flush),
             bound_ms=bms, bound_by=by,
-            max_abs_err=k1_err[(m, torch.uint8, torch.bfloat16)])
+            max_abs_err=k1_err[(c, m, torch.uint8, torch.bfloat16)])
     t = k1_timed[256]
     outs = 256 * 48 * 64 * c
     entries.append(entry(
@@ -441,7 +676,12 @@ def kernel_checks(seed: int, dev: torch.device):
         K_REPLACES["first_conv_s2"], t["max_abs_err"], t["ms"],
         t["plain_ms"], t["library_ms"],
         256 * 96 * 128 + 4 * (w.numel() + b.numel()) + 2 * outs,
-        outs * (2 * 9 + 1 + 8), "train_conv1",
+        outs * (2 * 9 + 1 + 8), "train_conv1", gelu_off_ms=t["gelu_off_ms"],
+        clean_l2_ms=t["clean_l2_ms"], memory_floor_ms=t["memory_floor_ms"],
+        kernel_only_ms=t["kernel_only_ms"],
+        memory_floor_note="zero_() of a tensor of the output's size, timed "
+                          "the same way",
+        build={k: v for k, v in build.items() if "bwd" not in k},
         serve_shape={"name": "first_conv_s2 (serve, M=4, uint8 in, bf16 "
                              "out)", **k1_timed[4]}))
     log(f"timing first_conv_s2 (serve, M=4): {k1_timed[4]}")
@@ -465,13 +705,23 @@ def kernel_checks(seed: int, dev: torch.device):
     entries.append(entry(
         "first_conv_s2_bwd (train, M=256, uint8 x, bf16 dy)", "conv1_bwd.cu",
         K_REPLACES["first_conv_s2_bwd"],
-        k1b_err[(256, torch.uint8, torch.bfloat16, True)],
+        k1b_err[(c, 256, torch.uint8, torch.bfloat16, True)],
         time_ms(lambda: conv1._backward(x, w, b, dy, True), flush),
         time_ms(lambda: conv1.first_conv_s2_bwd_ref(x, w, b, dy, True),
                 flush),
         time_ms(k1b_library, flush),
         x.numel() + 2 * dy.numel() + 4 * 2 * (w.numel() + b.numel()),
         dy.numel() * (2 * 9 + 2 * 9 + 12), "train_conv1",
+        gelu_off_ms=time_ms(lambda: conv1._backward(x, w, b, dy, False),
+                            flush),
+        clean_l2_ms=time_ms(lambda: conv1._backward(x, w, b, dy, True),
+                            flush, dirty=False),
+        kernel_only_ms=kernel_only_ms(
+            lambda: conv1._backward(x, w, b, dy, True), flush, "conv1_bwd"),
+        memory_floor_ms=time_ms(dy.view(torch.float32).sum, flush),
+        memory_floor_note="sum() over dy's bytes viewed as f32, timed the "
+                          "same way",
+        build={k: v for k, v in build.items() if "bwd" in k},
         library_note="gelu_backward + convolution_backward (weight, bias) "
                      "in bf16, given the pre-activation z for free"))
 

@@ -17,6 +17,8 @@ bf16), so the forward's output is not kept for it.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -28,6 +30,38 @@ T_IN, P_IN = 96, 128          # bar roll
 T_OUT, P_OUT = 48, 64         # stride-2 output
 CHANNELS = (4, 8, 16, 32)     # output widths the kernel is built for
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+# Launch geometry of both kernels, mirrored from csrc/conv1.cuh
+# (``Geometry``): a tile is ``rows`` output rows of one bar, all pitches and
+# channels, 4 channels a thread; each kernel launches at most as many blocks
+# as an H100 holds at once, and a block walks tiles blockIdx, blockIdx +
+# blocks, ...
+MAX_THREADS = 256
+TARGET_TILES = 264            # two for each of an H100's 132 SMs
+FWD_BLOCKS = 4 * 132          # forward: 4 blocks an SM (64 registers)
+BWD_BLOCKS = 2 * 132          # backward: 2 blocks an SM (128 registers)
+_ROW_TILES = (8, 4, 2, 1)
+
+
+class Geometry(NamedTuple):
+    rows: int                 # output rows a tile
+    tiles: int
+    threads: int              # threads a block
+    fwd_blocks: int
+    bwd_blocks: int           # also the backward's partials per term
+
+
+def geometry(m: int, c: int) -> Geometry:
+    """The first-conv kernels' launch for ``m`` bars of ``c`` channels, a
+    function of M and C alone (never of the card, so the backward's sum
+    order is the same everywhere): the largest row tile that keeps a thread
+    at no more than 8 positions and still gives ``TARGET_TILES`` tiles,
+    else one row. The backward's partials are ``[10·c, bwd_blocks]``."""
+    rows = next((r for r in _ROW_TILES
+                 if r <= 128 // c and m * (T_OUT // r) >= TARGET_TILES), 1)
+    tiles = m * (T_OUT // rows)
+    return Geometry(rows, tiles, min(MAX_THREADS, rows * P_OUT * c // 4),
+                    min(tiles, FWD_BLOCKS), min(tiles, BWD_BLOCKS))
 
 
 def first_conv_s2_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -75,7 +109,15 @@ def _check(name: str, x, w, b) -> int:
     if w.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(f"{name}: w and b must be float32")
     _kernels.check_cuda_inputs(name, x.device, x=x, w=w, b=b)
+    _check_aligned(name, x=x)
     return c
+
+
+def _check_aligned(name: str, **tensors) -> None:
+    """The kernels load x and dy in 16-byte chunks."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
 def _forward(x, w, b, gelu: bool, out_dtype: torch.dtype) -> torch.Tensor:
@@ -110,9 +152,11 @@ def _backward(x, w, b, dy, gelu: bool):
         raise ValueError(f"{name}: dy must be [{m},{T_OUT},{P_OUT},{c}] in "
                          f"bf16 or f32, got {dy.dtype} {tuple(dy.shape)}")
     _kernels.check_cuda_inputs(name, x.device, dy=dy)
+    _check_aligned(name, dy=dy)
     if m == 0:
         return torch.zeros_like(w), torch.zeros_like(b)
-    partials = torch.empty((m, 10 * c), dtype=torch.float32, device=x.device)
+    partials = torch.empty((10 * c, geometry(m, c).bwd_blocks),
+                           dtype=torch.float32, device=x.device)
     out = torch.empty(10 * c, dtype=torch.float32, device=x.device)
     rc = _kernels.lib().mvk_first_conv_s2_bwd(
         x.data_ptr(), _kernels.KINDS[x.dtype], w.data_ptr(), b.data_ptr(),
@@ -134,7 +178,9 @@ class _FirstConvS2(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         x, w, b = ctx.saved_tensors
-        # dy often arrives as a permuted view of an NCHW gradient
+        # the trunk's cuDNN conv hands dy over contiguous NHWC (checked on
+        # the card, chip_smoke.py `_conv1_dy_layout`), so this copies
+        # nothing there; other callers may pass a permuted view
         dw, db = _backward(x, w, b, dy.contiguous(), ctx.gelu)
         dx = torch.zeros_like(x) if ctx.needs_input_grad[0] else None
         return dx, dw.to(w.dtype), db.to(b.dtype), None, None
