@@ -150,24 +150,38 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 30,
     return sum(samples) / iters
 
 
-def kernel_only_ms(fn, flush: torch.Tensor, match: str, reps: int = 10):
-    """Device time of the kernels of one call of ``fn`` whose names contain
-    ``match``, from torch.profiler (CUPTI), each call from the same cold L2
-    as ``time_ms``: the kernels' own time, without the launch and event
-    latency that ``time_ms`` includes."""
+def kernel_only_parts(fn, flush: torch.Tensor, match: str,
+                      reps: int = 10, attempts: int = 3) -> dict:
+    """Device time of each kernel of one call of ``fn`` whose name contains
+    ``match``, in ms by kernel name, from torch.profiler (CUPTI), each call
+    from the same cold L2 as ``time_ms``: the kernels' own time, without
+    the launch and event latency that ``time_ms`` includes. A trace that
+    recorded no such kernel (CUPTI drops one now and then) is taken again,
+    up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if match in e.key and e.device_time_total > 0)
-    check(us > 0, f"torch.profiler recorded no {match} kernel")
-    return us / reps / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        parts = {e.key: e.device_time_total / reps / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and match in e.key and e.device_time_total > 0}
+        if parts:
+            return parts
+    check(False, f"torch.profiler recorded no {match} kernel in {attempts} "
+                 f"traces")
+
+
+def kernel_only_ms(fn, flush: torch.Tensor, match: str, reps: int = 10):
+    """The sum of ``kernel_only_parts``."""
+    return sum(kernel_only_parts(fn, flush, match, reps).values())
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -271,8 +285,8 @@ def _sass_report(lib_path: str) -> dict:
         def hist(body):
             h = {}
             for _, op, sfx, _ in body:
-                key = op + sfx if op in ("MUFU", "HMMA", "LDS", "STG") \
-                    else op
+                key = op + sfx if op in ("MUFU", "HMMA", "LDS", "STG",
+                                         "LDG", "I2F", "CALL") else op
                 h[key] = h.get(key, 0) + 1
             return dict(sorted(h.items(), key=lambda kv: -kv[1]))
 
@@ -297,10 +311,10 @@ def _sass_report(lib_path: str) -> dict:
     return rep
 
 
-def conv1_build_report() -> dict:
-    """ptxas and SASS numbers of every first-conv kernel instantiation
-    (conv1.cu, conv1_bwd.cu), keyed by readable name; every loop's counts
-    for the main path's (uint8 x, bf16 out or dy, C=16)."""
+def build_report(match: str, main: str) -> dict:
+    """ptxas and SASS numbers of every kernel instantiation whose readable
+    name contains ``match``, keyed by that name; every loop's counts only
+    for the main path's instantiations (names containing ``main``)."""
     from musicvae_tpu_torch.ops import _kernels
 
     ptxas = _ptxas_report(_kernels.build_info.get("log", ""))
@@ -308,12 +322,12 @@ def conv1_build_report() -> dict:
     names = _demangle(sorted(set(ptxas) | set(sass) - {"error"}))
     rep = {}
     for mangled, readable in names.items():
-        if "conv1" not in readable:
+        if match not in readable:
             continue
         short = re.sub(r"^void |\(.*\)$", "", readable.replace(
             "(anonymous namespace)::", "").replace("mvk::", ""))
         rep[short] = {**ptxas.get(mangled, {}), **sass.get(mangled, {})}
-        if "unsigned char, __nv_bfloat16, 16" not in short:
+        if main not in short:
             rep[short].pop("loops", None)     # every loop: main path only
         log(f"  build {short}: {rep[short]}")
     if "error" in sass:
@@ -472,7 +486,13 @@ def _bce_checks(g, dev, details):
     """K2 (sum), K4 (sum + tile) and K3 (backward) against the plain BCE
     under autograd. Sums: 1e-5 relative. Gradients: 1e-6·max(1, g)
     absolute for f32 logits; for bf16 logits one bf16 step at the largest
-    gradient, g·2^-7 (both sides round the same f32 value)."""
+    gradient, g·2^-7 (both sides round the same f32 value). Cases: 3·randn
+    logits at the train shape and a ragged one; trained-like logits (95 %
+    of cells confident, where a cell's BCE is about exp(−|l|) and only a
+    relative error per cell keeps the sum within 1e-5); p = 100 and 84 (the
+    kernels' general mask path); inputs at unaligned addresses (their
+    scalar loads), which must give the aligned inputs' bits. Every case:
+    the same bits twice, K4's sum equal to K2's bits."""
     from musicvae_tpu_torch.ops import fused_elbo, losses
 
     crop = torch.zeros(128, device=dev)
@@ -486,6 +506,51 @@ def _bce_checks(g, dev, details):
         (grad,) = torch.autograd.grad(total * gscale, leaf)
         return total.detach(), grad
 
+    def one(lg, x, mask, tags):
+        """Every check of one (logits, x, mask); returns K2's sum and the
+        errors by gradient scale."""
+        l_dtype = lg.dtype
+        with torch.no_grad():
+            k2 = fused_elbo.masked_bce_sum(lg, x, mask)
+            k2_again = fused_elbo.masked_bce_sum(lg, x, mask)
+        ref = losses.masked_bce_sum(lg, x, mask)
+        rel = abs(float(k2) - float(ref)) / abs(float(ref))
+        case = dict(**tags, kernel=float(k2), plain=float(ref), rel_err=rel,
+                    abs_err=abs(float(k2) - float(ref)),
+                    same_bits_twice=bool(torch.equal(k2, k2_again)))
+        _case_log("K2 masked_bce_sum", case, details, "k2")
+        check(rel <= 1e-5, f"K2 disagrees: {case}")
+        check(case["same_bits_twice"], f"K2 is not deterministic: {case}")
+        errs = {"k2": case["abs_err"]}
+        for gscale in (1.0, 3.5):
+            tol = (1e-6 * max(1.0, gscale) if l_dtype == torch.float32
+                   else gscale * 2.0 ** -7)
+            want = fused_elbo.masked_bce_bwd_plain(lg, x, mask, gscale)
+            s4, g4 = run(fused_elbo.masked_bce_sum_dual, lg, x, mask, gscale)
+            s4b, g4b = run(fused_elbo.masked_bce_sum_dual, lg, x, mask,
+                           gscale)
+            s3, g3 = run(fused_elbo.masked_bce_sum, lg, x, mask, gscale)
+            _, g3b = run(fused_elbo.masked_bce_sum, lg, x, mask, gscale)
+            e4 = float((g4.float() - want.float()).abs().max())
+            e3 = float((g3.float() - want.float()).abs().max())
+            case = dict(
+                **tags, g=gscale, tol=tol,
+                k4_grad_max_abs_err=e4, k3_grad_max_abs_err=e3,
+                k4_sum_equals_k2_bits=bool(torch.equal(s4, k2)),
+                k3_equals_k4_grad_bits=bool(torch.equal(g3, g4)),
+                same_bits_twice=bool(
+                    torch.equal(s4, s4b) and torch.equal(g4, g4b)
+                    and torch.equal(g3, g3b)))
+            _case_log("K4/K3 masked_bce dual/bwd", case, details, "k34")
+            check(e4 <= tol and e3 <= tol, f"K4/K3 gradient disagrees: {case}")
+            check(case["k4_sum_equals_k2_bits"],
+                  f"K4's sum is not K2's bits: {case}")
+            check(bool(torch.equal(s3, k2)),
+                  f"K2 under autograd changed its sum: {case}")
+            check(case["same_bits_twice"], f"K4/K3 not deterministic: {case}")
+            errs[("k4", gscale)], errs[("k3", gscale)] = e4, e3
+        return k2, errs
+
     for shape in ((64, 4, 96, 128), (12345, 128)):
         logits = 3.0 * torch.randn(shape, generator=g, device=dev)
         xb = torch.rand(shape, generator=g, device=dev) < 0.05
@@ -494,61 +559,109 @@ def _bce_checks(g, dev, details):
             for x_dtype in (torch.float32, torch.uint8):
                 x = xb.to(x_dtype)
                 for mname, mask in (("full", full), ("crop", crop)):
-                    with torch.no_grad():
-                        k2 = fused_elbo.masked_bce_sum(lg, x, mask)
-                        k2_again = fused_elbo.masked_bce_sum(lg, x, mask)
-                    ref = losses.masked_bce_sum(lg, x, mask)
-                    rel = abs(float(k2) - float(ref)) / abs(float(ref))
-                    case = dict(shape=list(shape), logits=str(l_dtype),
-                                x=str(x_dtype), mask=mname, kernel=float(k2),
-                                plain=float(ref), rel_err=rel,
-                                abs_err=abs(float(k2) - float(ref)),
-                                same_bits_twice=bool(
-                                    torch.equal(k2, k2_again)))
-                    _case_log("K2 masked_bce_sum", case, details, "k2")
-                    check(rel <= 1e-5, f"K2 disagrees: {case}")
-                    check(case["same_bits_twice"],
-                          f"K2 is not deterministic: {case}")
-                    err["k2"][(shape, l_dtype, x_dtype, mname)] = \
-                        case["abs_err"]
+                    _, errs = one(lg, x, mask, dict(
+                        shape=list(shape), logits=str(l_dtype),
+                        x=str(x_dtype), mask=mname))
+                    err["k2"][(shape, l_dtype, x_dtype, mname)] = errs["k2"]
                     for gscale in (1.0, 3.5):
-                        tol = (1e-6 * max(1.0, gscale)
-                               if l_dtype == torch.float32
-                               else gscale * 2.0 ** -7)
-                        want = fused_elbo.masked_bce_bwd_plain(
-                            lg, x, mask, gscale)
-                        s4, g4 = run(fused_elbo.masked_bce_sum_dual, lg, x,
-                                     mask, gscale)
-                        s4b, g4b = run(fused_elbo.masked_bce_sum_dual, lg,
-                                       x, mask, gscale)
-                        s3, g3 = run(fused_elbo.masked_bce_sum, lg, x, mask,
-                                     gscale)
-                        _, g3b = run(fused_elbo.masked_bce_sum, lg, x, mask,
-                                     gscale)
-                        e4 = float((g4.float() - want.float()).abs().max())
-                        e3 = float((g3.float() - want.float()).abs().max())
-                        case = dict(
-                            shape=list(shape), logits=str(l_dtype),
-                            x=str(x_dtype), mask=mname, g=gscale, tol=tol,
-                            k4_grad_max_abs_err=e4, k3_grad_max_abs_err=e3,
-                            k4_sum_equals_k2_bits=bool(torch.equal(s4, k2)),
-                            k3_equals_k4_grad_bits=bool(torch.equal(g3, g4)),
-                            same_bits_twice=bool(
-                                torch.equal(s4, s4b) and torch.equal(g4, g4b)
-                                and torch.equal(g3, g3b)))
-                        _case_log("K4/K3 masked_bce dual/bwd", case, details,
-                                  "k34")
-                        check(e4 <= tol and e3 <= tol,
-                              f"K4/K3 gradient disagrees: {case}")
-                        check(case["k4_sum_equals_k2_bits"],
-                              f"K4's sum is not K2's bits: {case}")
-                        check(bool(torch.equal(s3, k2)),
-                              f"K2 under autograd changed its sum: {case}")
-                        check(case["same_bits_twice"],
-                              f"K4/K3 not deterministic: {case}")
                         key = (shape, l_dtype, x_dtype, mname, gscale)
-                        err["k4"][key], err["k3"][key] = e4, e3
+                        err["k4"][key] = errs[("k4", gscale)]
+                        err["k3"][key] = errs[("k3", gscale)]
+
+    # trained-like logits: cells with x = 0 at l ~ -N(10, 2), note cells
+    # (5 %) at +N(5, 2); every x type
+    shape = (64, 4, 96, 128)
+    xb = torch.rand(shape, generator=g, device=dev) < 0.05
+    logits = torch.where(
+        xb, 5.0 + 2.0 * torch.randn(shape, generator=g, device=dev),
+        -10.0 + 2.0 * torch.randn(shape, generator=g, device=dev))
+    for l_dtype in (torch.float32, torch.bfloat16):
+        for x_dtype in (torch.uint8, torch.bfloat16, torch.float32):
+            one(logits.to(l_dtype), xb.to(x_dtype), crop,
+                dict(case="trained_like", shape=list(shape),
+                     logits=str(l_dtype), x=str(x_dtype), mask="crop"))
+
+    # p that does not divide 1024 (the general mask path); a mask of 0s and
+    # 1s and fractional values, and fractional targets
+    for p in (100, 84):
+        shape = (777, p)
+        logits = 3.0 * torch.randn(shape, generator=g, device=dev)
+        mask = (torch.rand(p, generator=g, device=dev) < 0.8).float()
+        mask[: p // 4] *= 0.5
+        xs = torch.rand(shape, generator=g, device=dev)
+        for l_dtype in (torch.float32, torch.bfloat16):
+            for x_dtype, x in ((torch.uint8, (xs < 0.05).to(torch.uint8)),
+                               (torch.float32, xs)):
+                one(logits.to(l_dtype), x, mask,
+                    dict(case=f"p{p}", shape=list(shape),
+                         logits=str(l_dtype), x=str(x_dtype), mask="mixed"))
+
+    # the same values at addresses that are not 16-byte aligned: the
+    # kernels' scalar loads and stores, and the aligned inputs' bits
+    shape = (300, 128)
+    n = shape[0] * shape[1]
+    logits = 3.0 * torch.randn(shape, generator=g, device=dev)
+    xb = (torch.rand(shape, generator=g, device=dev) < 0.05).to(torch.uint8)
+    lbuf = torch.empty(n + 1, device=dev)
+    xbuf = torch.empty(n + 1, dtype=torch.uint8, device=dev)
+    lu = lbuf[1:].view(shape).copy_(logits)
+    xu = xbuf[1:].view(shape).copy_(xb)
+    k2_u, _ = one(lu, xu, crop, dict(case="unaligned", shape=list(shape),
+                                     logits="torch.float32", x="torch.uint8",
+                                     mask="crop"))
+    with torch.no_grad():
+        k2_a = fused_elbo.masked_bce_sum(logits, xb, crop)
+        s4_u, t4_u = fused_elbo._bce_sum(lu, xu, crop, dual=True)
+        s4_a, t4_a = fused_elbo._bce_sum(logits, xb, crop, dual=True)
+    same = dict(k2=bool(torch.equal(k2_u, k2_a)),
+                k4_sum=bool(torch.equal(s4_u, s4_a)),
+                k4_tile=bool(torch.equal(t4_u, t4_a)))
+    log(f"K2/K4 unaligned inputs give the aligned inputs' bits: {same}")
+    check(all(same.values()), f"unaligned inputs change K2/K4's bits: {same}")
+
+    # one launch a call, nothing else on the card
+    per_call = {
+        "masked_bce_sum": profiled_kernels(
+            lambda: fused_elbo._bce_sum(logits, xb, crop, dual=False))[0],
+        "masked_bce_sum_dual": profiled_kernels(
+            lambda: fused_elbo._bce_sum(logits, xb, crop, dual=True))[0]}
+    log(f"K2/K4 device launches a call: {per_call}")
+    check(all(v == 1 for v in per_call.values()),
+          f"K2/K4 should launch one kernel a call: {per_call}")
+    details["bce_launches_per_call"] = per_call
+    details["bce_unaligned_same_bits"] = same
     return err
+
+
+def _bce_geometry_check():
+    """ops/fused_elbo.py's mirror of the sum kernels' launch geometry
+    against the C side's, which sizes the launches."""
+    import ctypes
+
+    from musicvae_tpu_torch.ops import _kernels, fused_elbo
+
+    fn = _kernels.lib().mvk_masked_bce_sum_geometry
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    cases, bad = 0, []
+    for rows in (0, 1, 2, 31, 32, 33, 37 * 4 * 96, 777, 12345, 64 * 4 * 96,
+                 16 * 64 * 96, 100_000):
+        for p in (1, 2, 3, 84, 100, 128, 1024, 2048):
+            n = rows * p
+            geo = (ctypes.c_longlong * 5)()
+            fn(n, p, geo)
+            c_side = (geo[0], geo[1], bool(geo[2]), geo[3], geo[4])
+            py = (*fused_elbo.sum_geometry(n, p), fused_elbo.SUM_CHUNK,
+                  fused_elbo.SUM_MAX_BLOCKS)
+            cases += 1
+            if c_side != py:
+                bad.append((n, p, c_side, py))
+    main = fused_elbo.sum_geometry(64 * 4 * 96 * 128, 128)
+    log(f"BCE sum geometry: C and Python agree in {cases - len(bad)} of "
+        f"{cases} (n, p); the train/eval shape: {main}")
+    check(not bad, f"BCE sum geometry differs (n, p, C, Python): {bad}")
+    return {"cases": cases, "main": list(main)}
 
 
 def _kl_checks(g, dev, details):
@@ -612,8 +725,15 @@ def kernel_checks(seed: int, dev: torch.device):
           for cc in conv1.CHANNELS}
     c = 16                              # the main path's width
     w, b = wb[c]
-    details["conv1_build"] = build = conv1_build_report()
+    # the first-conv kernels (conv1.cu, conv1_bwd.cu): every loop for the
+    # main path's uint8 x, bf16 out or dy, C=16
+    details["conv1_build"] = build = build_report(
+        "conv1", "unsigned char, __nv_bfloat16, 16")
+    # the BCE kernels (masked_bce.cu): every loop for f32 logits, uint8 x
+    details["bce_build"] = bce_build = build_report(
+        "bce", "float, unsigned char")
     details["conv1_geometry"] = _conv1_geometry_check()
+    details["bce_geometry"] = _bce_geometry_check()
     k1_err = _k1_checks(g, dev, wb, details)
     k1b_err = _k1b_checks(g, dev, wb, details)
     details["k1b_dy_layout"] = _conv1_dy_layout(dev, w, b)
@@ -732,17 +852,40 @@ def kernel_checks(seed: int, dev: torch.device):
     full = torch.ones(128, device=dev)
     n = logits.numel()
     key = (shape, torch.float32, torch.uint8, "full")
+    tile_like = torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def bce_extras(fn, floor, floor_note, main):
+        """Kernel alone (each kernel of the call), clean L2, a memory floor
+        of the same bytes, and ptxas/SASS of the main path's
+        instantiations (names starting with ``main``)."""
+        parts = kernel_only_parts(fn, flush, "bce")
+        log(f"  kernel alone by kernel: {parts}")
+        return dict(kernel_only_ms=sum(parts.values()),
+                    kernel_only_parts=parts,
+                    clean_l2_ms=time_ms(fn, flush, dirty=False),
+                    memory_floor_ms=time_ms(floor, flush),
+                    memory_floor_note=floor_note,
+                    build={k: v for k, v in bce_build.items()
+                           if k.startswith(main)})
+
+    def k2_call():
+        return fused_elbo.masked_bce_sum(logits, xu8, full)
+
     with torch.no_grad():
         entries.append(entry(
             "masked_bce_sum (eval, [64,4,96,128] f32 logits, uint8 x)",
             "masked_bce.cu", K_REPLACES["masked_bce_sum"],
             bce_err["k2"][key],
-            time_ms(lambda: fused_elbo.masked_bce_sum(logits, xu8, full),
-                    flush),
+            time_ms(k2_call, flush),
             time_ms(lambda: losses.masked_bce_sum(logits, xu8, full), flush),
             time_ms(lambda: F.binary_cross_entropy_with_logits(
                 logits, xf, weight=full, reduction="sum"), flush),
-            4 * n + n + 4 * 128 + 4, 9 * n, "eval"))
+            4 * n + n + 4 * 128 + 4, 9 * n, "eval",
+            **bce_extras(k2_call, lambda: (logits.sum(),
+                                           xu8.view(torch.float32).sum()),
+                         "logits.sum() + xu8.view(float32).sum(): reads 4n + "
+                         "n bytes as K2 does, in two launches, timed the "
+                         "same way", "bce_sum<float, unsigned char, false")))
 
     gdev = torch.full((), 1.0 / 64, device=dev)
     leaf = logits.clone().requires_grad_(True)
@@ -756,26 +899,37 @@ def kernel_checks(seed: int, dev: torch.device):
                                                    reduction="sum")
         return total, torch.autograd.grad(total, leaf)
 
+    def k4_call():
+        return fused_elbo._bce_sum(logits, xu8, full, dual=True)
+
     entries.append(entry(
         "masked_bce_sum_dual (train, [64,4,96,128] f32 logits, uint8 x)",
         "masked_bce.cu", K_REPLACES["masked_bce_sum_dual"],
         bce_err["k4"][key + (1.0,)],
-        time_ms(lambda: fused_elbo._bce_sum(logits, xu8, full, dual=True),
-                flush),
+        time_ms(k4_call, flush),
         time_ms(plain_dual, flush), time_ms(library_dual, flush),
         4 * n + n + 4 * n + 4 * 128 + 4, 15 * n, "train",
         library_note="binary_cross_entropy_with_logits(sum) forward + "
-                     "autograd.grad"))
+                     "autograd.grad",
+        **bce_extras(k4_call, lambda: torch.add(logits, xu8, out=tile_like),
+                     "torch.add(logits, xu8, out=f32 tile): reads 4n + n "
+                     "and writes 4n bytes as K4 does, timed the same way",
+                     "bce_sum<float, unsigned char, true")))
+
+    def k3_call():
+        return fused_elbo._bce_bwd(logits, xu8, full, gdev)
+
     entries.append(entry(
         "masked_bce_bwd (fused_elbo backward, [64,4,96,128] f32 logits, "
         "uint8 x)", "masked_bce.cu", K_REPLACES["masked_bce_bwd"],
         bce_err["k3"][key + (1.0,)],
-        time_ms(lambda: fused_elbo._bce_bwd(logits, xu8, full, gdev), flush),
+        time_ms(k3_call, flush),
         time_ms(lambda: fused_elbo.masked_bce_bwd_plain(logits, xu8, full,
                                                         gdev), flush),
         time_ms(lambda: (torch.sigmoid(logits) - xf) * full * gdev, flush),
         4 * n + n + 4 * n + 4 * 128 + 4, 10 * n, "fused_elbo",
-        library_note="(sigmoid(l) - x) * mask * g, eager, x already f32"))
+        library_note="(sigmoid(l) - x) * mask * g, eager, x already f32",
+        kernel_only_ms=kernel_only_ms(k3_call, flush, "bce_bwd")))
 
     mu = torch.randn((64, 128), generator=g, device=dev)
     lv = torch.randn((64, 128), generator=g, device=dev)
@@ -981,21 +1135,26 @@ def eval_phase(seed: int, dev: torch.device):
     return launches, {"kernel": got, "plain": plain, "eval_ms_host": dt * 1e3}
 
 
-def profiled_kernels(fn):
+def profiled_kernels(fn, attempts: int = 3):
     """(kernel launches, summed kernel time in ms) on the card for one call
     of ``fn``, from torch.profiler. The times are the kernels' own; the
-    host's launch gaps between them are not in the sum."""
+    host's launch gaps between them are not in the sum. A trace with no
+    device time (CUPTI drops one now and then) is taken again, up to
+    ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(e.count, e.device_time_total) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.device_time_total > 0]
-    check(bool(rows), "torch.profiler recorded no device time")
-    return sum(r[0] for r in rows), sum(r[1] for r in rows) / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.count, e.device_time_total) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.device_time_total > 0]
+        if rows:
+            return sum(r[0] for r in rows), sum(r[1] for r in rows) / 1e3
+    check(False, f"torch.profiler recorded no device time in {attempts} "
+                 f"traces")
 
 
 def fused_elbo_phase(seed: int, dev: torch.device):

@@ -21,6 +21,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even
 }
 
+// The MUFU's 2^v and 1/v (a few ulp each; subnormal inputs and results
+// flushed to zero).
+__device__ __forceinline__ float ex2_approx(float v) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float v) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
+  return y;
+}
+
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }

@@ -282,18 +282,6 @@ constexpr float GELU_K1 = 0.044715f;
 constexpr float GELU_C0 = 2.302208198144325f;    // 2·K0·log2(e)
 constexpr float GELU_C1 = 0.1029432395800235f;   // 2·K0·K1·log2(e)
 
-__device__ __forceinline__ float ex2_approx(float v) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
-  return y;
-}
-
-__device__ __forceinline__ float rcp_approx(float v) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
-  return y;
-}
-
 __device__ __forceinline__ void gelu_tanh2(float& z0, float& z1) {
   const float d0 = 1.0f + ex2_approx(fminf(z0 * fmaf(GELU_C1, z0 * z0, GELU_C0), 60.f));
   const float d1 = 1.0f + ex2_approx(fminf(z1 * fmaf(GELU_C1, z1 * z1, GELU_C0), 60.f));

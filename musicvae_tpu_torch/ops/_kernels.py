@@ -119,10 +119,10 @@ def lib() -> ctypes.CDLL:
             handle.mvk_first_conv_s2.argtypes = [p, i, p, p, p, i, i, i, i, p]
             handle.mvk_first_conv_s2_bwd.argtypes = [p, i, p, p, p, i, p, p,
                                                      i, i, i, p]
-            handle.mvk_masked_bce_sum.argtypes = [p, i, p, i, p, p, p, ll, i,
+            handle.mvk_masked_bce_sum.argtypes = [p, i, p, i, p, p, p, p, ll,
                                                   i, p]
             handle.mvk_masked_bce_sum_dual.argtypes = [p, i, p, i, p, p, p, p,
-                                                       ll, i, i, p]
+                                                       p, ll, i, p]
             handle.mvk_masked_bce_bwd.argtypes = [p, i, p, i, p, p, p, ll, i,
                                                   i, p]
             handle.mvk_kl_sum.argtypes = [p, p, i, p, ll, p]

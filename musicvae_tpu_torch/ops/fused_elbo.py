@@ -21,7 +21,7 @@ plain torch on either device, computed only when asked for.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -29,16 +29,55 @@ from torch.autograd.function import once_differentiable
 from musicvae_tpu_torch.ops import _kernels, losses
 
 _THREADS = 256                # csrc/masked_bce.cu THREADS
-_CELLS_PER_THREAD = 16        # 4 grid-stride steps of 4 cells
-_MAX_BLOCKS = 1024
 _KL_BWD_THREADS = 256         # csrc/kl.cu BWD_THREADS
 
+# Launch geometry of the sum kernels K2 and K4, mirrored from
+# csrc/masked_bce.cu (``sum_geometry``): a chunk is SUM_CHUNK consecutive
+# cells, thread t of a block takes cells 4t..4t+3 of it, block b takes
+# chunks b, b + blocks, ...; the grid is a block a chunk, at most
+# SUM_MAX_BLOCKS.
+SUM_GROUP = 4
+SUM_CHUNK = _THREADS * SUM_GROUP
+SUM_MAX_BLOCKS = 1024                    # also the partials in a workspace
 
-def partial_blocks(n: int) -> int:
-    """Pass-1 grid size for ``n`` cells: a function of ``n`` alone, so the
-    reduction order, and the sum's bits, never change between runs."""
-    per_block = _THREADS * _CELLS_PER_THREAD
-    return max(1, min(-(-n // per_block), _MAX_BLOCKS))
+
+class SumGeometry(NamedTuple):
+    chunks: int
+    blocks: int
+    fixed_col: bool           # p divides SUM_CHUNK: a thread's 4 columns
+    #                           never change, its mask values stay in registers
+
+
+def sum_geometry(n: int, p: int) -> SumGeometry:
+    """The sum kernels' launch for ``n`` cells of ``p`` pitches: the blocks
+    are a function of ``n`` alone (never of the card or the pointers), and
+    so are the order of the additions and the sum's bits."""
+    chunks = -(-n // SUM_CHUNK)
+    return SumGeometry(chunks, max(1, min(chunks, SUM_MAX_BLOCKS)),
+                       SUM_CHUNK % p == 0)
+
+
+def bwd_blocks(n: int) -> int:
+    """The backward kernel's grid for ``n`` cells: a grid-stride loop of 4
+    cells a thread a step, about 16 cells a thread, at most 1024 blocks."""
+    return max(1, min(-(-n // (_THREADS * 16)), 1024))
+
+
+_workspaces: dict = {}
+
+
+def _sum_workspace(dev: torch.device, stream: int):
+    """(partials [SUM_MAX_BLOCKS] f32, ticket [1] int32) for the sum kernels
+    on one device and stream, made once: the ticket is zeroed here, and
+    every launch leaves it 0, so no call launches a memset. Launches on one
+    stream run in order, so they can share it."""
+    key = (dev, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = (torch.empty(SUM_MAX_BLOCKS, dtype=torch.float32, device=dev),
+              torch.zeros(1, dtype=torch.int32, device=dev))
+        _workspaces[key] = ws
+    return ws
 
 
 def _on_cpu(name: str, t: torch.Tensor) -> bool:
@@ -78,21 +117,19 @@ def _bce_sum(logits, x, mask, dual: bool):
         return total, (bce_grad_tile_plain(logits, x, mask) if dual else None)
     _check_bce(name, logits, x, mask)
     n, p = logits.numel(), logits.shape[-1]
-    blocks = partial_blocks(n)
-    dev = logits.device
-    partials = torch.empty(blocks, dtype=torch.float32, device=dev)
+    dev, stream = logits.device, _kernels.stream_of(logits)
+    partials, ticket = _sum_workspace(dev, stream)
     out = torch.empty((), dtype=torch.float32, device=dev)
     args = (logits.data_ptr(), _kernels.KINDS[logits.dtype], x.data_ptr(),
             _kernels.KINDS[x.dtype], mask.data_ptr(), partials.data_ptr(),
-            out.data_ptr())
-    tail = (n, p, blocks, _kernels.stream_of(logits))
+            ticket.data_ptr(), out.data_ptr())
     if dual:
         tile = torch.empty(logits.shape, dtype=torch.float32, device=dev)
         rc = _kernels.lib().mvk_masked_bce_sum_dual(*args, tile.data_ptr(),
-                                                    *tail)
+                                                    n, p, stream)
     else:
         tile = None
-        rc = _kernels.lib().mvk_masked_bce_sum(*args, *tail)
+        rc = _kernels.lib().mvk_masked_bce_sum(*args, n, p, stream)
     _kernels.check(rc, name)
     _kernels.LAUNCHES[name] += 1
     return out, tile
@@ -122,7 +159,7 @@ def _bce_bwd(logits, x, mask, g):
     rc = _kernels.lib().mvk_masked_bce_bwd(
         logits.data_ptr(), _kernels.KINDS[logits.dtype], x.data_ptr(),
         _kernels.KINDS[x.dtype], mask.data_ptr(), g.data_ptr(),
-        dl.data_ptr(), n, p, partial_blocks(n), _kernels.stream_of(logits))
+        dl.data_ptr(), n, p, bwd_blocks(n), _kernels.stream_of(logits))
     _kernels.check(rc, name)
     _kernels.LAUNCHES[name] += 1
     return dl
