@@ -492,7 +492,8 @@ def _bce_checks(g, dev, details):
     relative error per cell keeps the sum within 1e-5); p = 100 and 84 (the
     kernels' general mask path); inputs at unaligned addresses (their
     scalar loads), which must give the aligned inputs' bits. Every case:
-    the same bits twice, K4's sum equal to K2's bits."""
+    the same bits twice, K4's sum equal to K2's bits, K3's dl equal to
+    (K4's tile * g).to(logits' dtype), the backward of the dual path."""
     from musicvae_tpu_torch.ops import fused_elbo, losses
 
     crop = torch.zeros(128, device=dev)
@@ -545,6 +546,8 @@ def _bce_checks(g, dev, details):
             check(e4 <= tol and e3 <= tol, f"K4/K3 gradient disagrees: {case}")
             check(case["k4_sum_equals_k2_bits"],
                   f"K4's sum is not K2's bits: {case}")
+            check(case["k3_equals_k4_grad_bits"],
+                  f"K3's dl is not (K4's tile * g).to(dtype): {case}")
             check(bool(torch.equal(s3, k2)),
                   f"K2 under autograd changed its sum: {case}")
             check(case["same_bits_twice"], f"K4/K3 not deterministic: {case}")
@@ -609,33 +612,41 @@ def _bce_checks(g, dev, details):
     k2_u, _ = one(lu, xu, crop, dict(case="unaligned", shape=list(shape),
                                      logits="torch.float32", x="torch.uint8",
                                      mask="crop"))
+    gdev = torch.full((), 3.5, device=dev)
     with torch.no_grad():
         k2_a = fused_elbo.masked_bce_sum(logits, xb, crop)
         s4_u, t4_u = fused_elbo._bce_sum(lu, xu, crop, dual=True)
         s4_a, t4_a = fused_elbo._bce_sum(logits, xb, crop, dual=True)
+        d3_u = fused_elbo._bce_bwd(lu, xu, crop, gdev)
+        d3_a = fused_elbo._bce_bwd(logits, xb, crop, gdev)
     same = dict(k2=bool(torch.equal(k2_u, k2_a)),
                 k4_sum=bool(torch.equal(s4_u, s4_a)),
-                k4_tile=bool(torch.equal(t4_u, t4_a)))
-    log(f"K2/K4 unaligned inputs give the aligned inputs' bits: {same}")
-    check(all(same.values()), f"unaligned inputs change K2/K4's bits: {same}")
+                k4_tile=bool(torch.equal(t4_u, t4_a)),
+                k3=bool(torch.equal(d3_u, d3_a)))
+    log(f"K2/K4/K3 unaligned inputs give the aligned inputs' bits: {same}")
+    check(all(same.values()),
+          f"unaligned inputs change K2/K4/K3's bits: {same}")
 
     # one launch a call, nothing else on the card
     per_call = {
         "masked_bce_sum": profiled_kernels(
             lambda: fused_elbo._bce_sum(logits, xb, crop, dual=False))[0],
         "masked_bce_sum_dual": profiled_kernels(
-            lambda: fused_elbo._bce_sum(logits, xb, crop, dual=True))[0]}
-    log(f"K2/K4 device launches a call: {per_call}")
+            lambda: fused_elbo._bce_sum(logits, xb, crop, dual=True))[0],
+        "masked_bce_bwd": profiled_kernels(
+            lambda: fused_elbo._bce_bwd(logits, xb, crop, gdev))[0]}
+    log(f"K2/K4/K3 device launches a call: {per_call}")
     check(all(v == 1 for v in per_call.values()),
-          f"K2/K4 should launch one kernel a call: {per_call}")
+          f"K2/K4/K3 should launch one kernel a call: {per_call}")
     details["bce_launches_per_call"] = per_call
     details["bce_unaligned_same_bits"] = same
     return err
 
 
 def _bce_geometry_check():
-    """ops/fused_elbo.py's mirror of the sum kernels' launch geometry
-    against the C side's, which sizes the launches."""
+    """ops/fused_elbo.py's mirror of the BCE kernels' launch geometry
+    against the C side's, which sizes the launches of K2, K4 and K3 (all
+    three launch ``sum_geometry(n, p)``)."""
     import ctypes
 
     from musicvae_tpu_torch.ops import _kernels, fused_elbo
@@ -658,16 +669,19 @@ def _bce_geometry_check():
             if c_side != py:
                 bad.append((n, p, c_side, py))
     main = fused_elbo.sum_geometry(64 * 4 * 96 * 128, 128)
-    log(f"BCE sum geometry: C and Python agree in {cases - len(bad)} of "
-        f"{cases} (n, p); the train/eval shape: {main}")
-    check(not bad, f"BCE sum geometry differs (n, p, C, Python): {bad}")
+    log(f"BCE geometry (K2, K4, K3): C and Python agree in "
+        f"{cases - len(bad)} of {cases} (n, p); the train/eval shape: {main}")
+    check(not bad, f"BCE geometry differs (n, p, C, Python): {bad}")
     return {"cases": cases, "main": list(main)}
 
 
 def _kl_checks(g, dev, details):
     """K5 against the plain KL sum (1e-5 relative), K6 against the plain
     gradients (1e-6·max(1, g) absolute in f32; one bf16 step of the
-    largest gradient for bf16 inputs)."""
+    largest gradient for bf16 inputs), on randn latents; K5 also with lv
+    uniform on [−8, 8], the range of the model's clamped logvar, where its
+    ex2-based e^lv is held to the same 1e-5; unaligned inputs must give the
+    aligned inputs' bits."""
     from musicvae_tpu_torch.ops import fused_elbo, losses
 
     err = {}
@@ -707,6 +721,32 @@ def _kl_checks(g, dev, details):
                       f"K5/K6 not deterministic: {case}")
                 err[(shape, dtype, gscale)] = (case["abs_err"],
                                                max(emu, elv))
+            # the same values one element past a 16-byte boundary: K5's
+            # scalar loads, and the aligned inputs' bits
+            n = mu.numel()
+            mbuf = torch.empty(n + 1, dtype=dtype, device=dev)
+            lbuf = torch.empty(n + 1, dtype=dtype, device=dev)
+            mu_u = mbuf[1:].view(shape).copy_(mu)
+            lv_u = lbuf[1:].view(shape).copy_(lv)
+            with torch.no_grad():
+                same = bool(torch.equal(fused_elbo.kl_sum(mu_u, lv_u),
+                                        fused_elbo.kl_sum(mu, lv)))
+            log(f"K5 unaligned {list(shape)} {dtype}: the aligned inputs' "
+                f"bits: {same}")
+            check(same, f"unaligned inputs change K5's bits: {shape} {dtype}")
+            details["k5_unaligned_same_bits"].append(
+                dict(shape=list(shape), dtype=str(dtype), same=same))
+            # logvar over the whole of the model's clamp
+            lv8 = (16.0 * torch.rand(shape, generator=g, device=dev) - 8.0
+                   ).to(dtype)
+            ref = losses.kl_diag_gaussian(mu.float(), lv8.float())
+            with torch.no_grad():
+                kl = fused_elbo.kl_sum(mu, lv8)
+            case = dict(shape=list(shape), dtype=str(dtype), lv="U[-8,8]",
+                        kernel=float(kl), plain=float(ref),
+                        rel_err=abs(float(kl) - float(ref)) / abs(float(ref)))
+            _case_log("K5 kl_sum", case, details, "k5_lv8")
+            check(case["rel_err"] <= 1e-5, f"K5 disagrees: {case}")
     return err
 
 
@@ -719,7 +759,8 @@ def kernel_checks(seed: int, dev: torch.device):
     from musicvae_tpu_torch.ops import conv1, fused_elbo, losses
 
     g = torch.Generator(dev).manual_seed(seed)
-    details = {"k1": [], "k1b": [], "k2": [], "k34": [], "k56": []}
+    details = {"k1": [], "k1b": [], "k2": [], "k34": [], "k56": [],
+               "k5_lv8": [], "k5_unaligned_same_bits": []}
     wb = {cc: (torch.randn((3, 3, cc), generator=g, device=dev) / 3.0,
                0.1 * torch.randn(cc, generator=g, device=dev))
           for cc in conv1.CHANNELS}
@@ -732,6 +773,8 @@ def kernel_checks(seed: int, dev: torch.device):
     # the BCE kernels (masked_bce.cu): every loop for f32 logits, uint8 x
     details["bce_build"] = bce_build = build_report(
         "bce", "float, unsigned char")
+    # the KL kernels (kl.cu): every loop for the main path's f32 latents
+    details["kl_build"] = kl_build = build_report("kl_", "<float>")
     details["conv1_geometry"] = _conv1_geometry_check()
     details["bce_geometry"] = _bce_geometry_check()
     k1_err = _k1_checks(g, dev, wb, details)
@@ -757,7 +800,7 @@ def kernel_checks(seed: int, dev: torch.device):
             f"({by})" + "".join(
                 f", {k[:-3].replace('_', ' ')} {extra[k] * 1e3:.2f} us"
                 for k in ("gelu_off_ms", "clean_l2_ms", "memory_floor_ms",
-                          "kernel_only_ms")
+                          "launch_floor_ms", "kernel_only_ms")
                 if k in extra))
         return e
 
@@ -854,18 +897,19 @@ def kernel_checks(seed: int, dev: torch.device):
     key = (shape, torch.float32, torch.uint8, "full")
     tile_like = torch.empty(shape, dtype=torch.float32, device=dev)
 
-    def bce_extras(fn, floor, floor_note, main):
-        """Kernel alone (each kernel of the call), clean L2, a memory floor
-        of the same bytes, and ptxas/SASS of the main path's
-        instantiations (names starting with ``main``)."""
-        parts = kernel_only_parts(fn, flush, "bce")
+    def extras(fn, match, floor, floor_note, build, main):
+        """Kernel alone (each kernel of the call whose name contains
+        ``match``), clean L2, a memory floor of the same bytes, and
+        ptxas/SASS of the main path's instantiations (names starting with
+        ``main``)."""
+        parts = kernel_only_parts(fn, flush, match)
         log(f"  kernel alone by kernel: {parts}")
         return dict(kernel_only_ms=sum(parts.values()),
                     kernel_only_parts=parts,
                     clean_l2_ms=time_ms(fn, flush, dirty=False),
                     memory_floor_ms=time_ms(floor, flush),
                     memory_floor_note=floor_note,
-                    build={k: v for k, v in bce_build.items()
+                    build={k: v for k, v in build.items()
                            if k.startswith(main)})
 
     def k2_call():
@@ -881,11 +925,11 @@ def kernel_checks(seed: int, dev: torch.device):
             time_ms(lambda: F.binary_cross_entropy_with_logits(
                 logits, xf, weight=full, reduction="sum"), flush),
             4 * n + n + 4 * 128 + 4, 9 * n, "eval",
-            **bce_extras(k2_call, lambda: (logits.sum(),
-                                           xu8.view(torch.float32).sum()),
-                         "logits.sum() + xu8.view(float32).sum(): reads 4n + "
-                         "n bytes as K2 does, in two launches, timed the "
-                         "same way", "bce_sum<float, unsigned char, false")))
+            **extras(k2_call, "bce", lambda: (logits.sum(),
+                                              xu8.view(torch.float32).sum()),
+                     "logits.sum() + xu8.view(float32).sum(): reads 4n + n "
+                     "bytes as K2 does, in two launches, timed the same way",
+                     bce_build, "bce_sum<float, unsigned char, false")))
 
     gdev = torch.full((), 1.0 / 64, device=dev)
     leaf = logits.clone().requires_grad_(True)
@@ -911,10 +955,10 @@ def kernel_checks(seed: int, dev: torch.device):
         4 * n + n + 4 * n + 4 * 128 + 4, 15 * n, "train",
         library_note="binary_cross_entropy_with_logits(sum) forward + "
                      "autograd.grad",
-        **bce_extras(k4_call, lambda: torch.add(logits, xu8, out=tile_like),
-                     "torch.add(logits, xu8, out=f32 tile): reads 4n + n "
-                     "and writes 4n bytes as K4 does, timed the same way",
-                     "bce_sum<float, unsigned char, true")))
+        **extras(k4_call, "bce", lambda: torch.add(logits, xu8, out=tile_like),
+                 "torch.add(logits, xu8, out=f32 tile): reads 4n + n and "
+                 "writes 4n bytes as K4 does, timed the same way",
+                 bce_build, "bce_sum<float, unsigned char, true")))
 
     def k3_call():
         return fused_elbo._bce_bwd(logits, xu8, full, gdev)
@@ -929,25 +973,52 @@ def kernel_checks(seed: int, dev: torch.device):
         time_ms(lambda: (torch.sigmoid(logits) - xf) * full * gdev, flush),
         4 * n + n + 4 * n + 4 * 128 + 4, 10 * n, "fused_elbo",
         library_note="(sigmoid(l) - x) * mask * g, eager, x already f32",
-        kernel_only_ms=kernel_only_ms(k3_call, flush, "bce_bwd")))
+        **extras(k3_call, "bce", lambda: torch.add(logits, xu8, out=tile_like),
+                 "torch.add(logits, xu8, out=f32 tile): reads 4n + n and "
+                 "writes 4n bytes as K3 does, timed the same way",
+                 bce_build, "bce_bwd<float, unsigned char")))
 
     mu = torch.randn((64, 128), generator=g, device=dev)
     lv = torch.randn((64, 128), generator=g, device=dev)
     nz = mu.numel()
     kkey = ((64, 128), torch.float32, 1.0)
+    kl_like, pair_like = torch.empty_like(mu), torch.empty(2 * nz, device=dev)
+
+    launch_floor = dict(
+        launch_floor_ms=time_ms(torch.zeros(1, device=dev).zero_, flush),
+        launch_floor_note="zero_() of a one-element f32 tensor, timed the "
+                          "same way: what one launch costs")
+
+    def k5_call():
+        return fused_elbo.kl_sum(mu, lv)
+
+    def k6_call():
+        return fused_elbo._kl_bwd(mu, lv, gdev)
+
     with torch.no_grad():
         entries.append(entry(
             "kl_sum (fused_elbo, [64,128] f32)", "kl.cu",
             K_REPLACES["kl_sum"], kl_err[kkey][0],
-            time_ms(lambda: fused_elbo.kl_sum(mu, lv), flush),
+            time_ms(k5_call, flush),
             time_ms(lambda: losses.kl_diag_gaussian(mu, lv), flush), None,
-            8 * nz + 4, 6 * nz, "fused_elbo"))
+            8 * nz + 4, 6 * nz, "fused_elbo",
+            **extras(k5_call, "kl_sum", lambda: torch.add(mu, lv, out=kl_like),
+                     "torch.add(mu, lv, out=f32 [64,128]): reads 8n bytes "
+                     "as K5 does (and writes 4n), one launch, timed the "
+                     "same way", kl_build, "kl_sum_kernel<float"),
+            **launch_floor))
     entries.append(entry(
         "kl_bwd (fused_elbo backward, [64,128] f32)", "kl.cu",
         K_REPLACES["kl_bwd"], kl_err[kkey][1],
-        time_ms(lambda: fused_elbo._kl_bwd(mu, lv, gdev), flush),
+        time_ms(k6_call, flush),
         time_ms(lambda: fused_elbo.kl_bwd_plain(mu, lv, gdev), flush), None,
-        8 * nz + 4 + 8 * nz, 5 * nz, "fused_elbo"))
+        8 * nz + 4 + 8 * nz, 5 * nz, "fused_elbo",
+        **extras(k6_call, "kl_bwd",
+                 lambda: torch.cat((mu.view(-1), lv.view(-1)), out=pair_like),
+                 "torch.cat((mu, lv), out=f32 [2n]): reads 8n and writes 8n "
+                 "bytes as K6 does, one launch, timed the same way",
+                 kl_build, "kl_bwd_kernel<float"),
+        **launch_floor))
     return entries, details
 
 

@@ -7,14 +7,30 @@
 // or bf16, the arithmetic is f32, the gradients come back in the inputs'
 // type.
 //
-// What bounds them on Hopper: nothing but the launch. The latents of one
+// What bounds them on Hopper: the launch and latency. The latents of one
 // batch are 64 x 128 = 8192 elements, 64 KB read: ~0.02 µs of memory time
-// against a few µs of launch latency. The TPU kernel is one VMEM tile with
-// no grid for the same reason.
+// against a launch (~5 µs by CUDA events on an H100) and one memory round
+// trip. The TPU kernel is one VMEM tile with no grid for the same reason.
 //
-// Design: K5 is one block. Each thread sums a strided share of the
-// elements, then the block reduces in a fixed order, so the sum's bits are
-// the same on every run. K6 is one elementwise pass. Precise expf.
+// K5 is one block of SUM_THREADS threads. A trip takes a chunk of
+// SUM_CHUNK = SUM_THREADS·SUM_GROUP elements, thread t its 8 elements
+// 8t..8t+7: every load of the trip is issued before any arithmetic (two
+// 16-byte loads of mu and two of lv in f32, one of each in bf16), so the
+// [64,128] latents take one trip, one memory round trip. Larger n loops
+// over chunks in order. Each thread adds its elements in index order, then
+// the block reduces by `block_sum`'s fixed tree, so the sum's bits depend
+// on n and the data alone: unaligned pointers and the ragged end take
+// scalar loads of the same elements in the same order. The term
+// (1 + lv − mu²) − e^lv is written out (no contraction), e^lv by one
+// ex2.approx of lv·log2 e instead of precise expf. Measured on an H100
+// (PERF.md §6): on one SM the math of 8,192 elements is part of the time.
+// One round trip instead of two gained 0.06 µs, the fast exp 0.3 µs; 256
+// threads of 32 elements (the same math on fewer warps) took twice as
+// long, and 8 blocks with a cross-block finish were slower too. The fast
+// exp's error, under 1e-6 relative an element for lv ∈ [−8, 8] (the model
+// clamps logvar to 8·tanh(lv/8)), keeps the sum within 1e-5.
+//
+// K6 is one elementwise pass, a thread an element. Precise expf.
 
 #include "common.cuh"
 
@@ -22,19 +38,72 @@ namespace mvk {
 namespace {
 
 constexpr int SUM_THREADS = 1024;
+constexpr int SUM_GROUP = 8;                          // elements a thread takes a trip: load8
+constexpr int SUM_CHUNK = SUM_THREADS * SUM_GROUP;    // elements a trip
 constexpr int BWD_THREADS = 256;
 
+// A thread's 8 elements by 16-byte loads, all issued before their use.
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// One element's term, (1 + lv − mu²) − e^lv, written out (no contraction),
+// e^lv as 2^(lv·log2 e) by the MUFU's ex2.
+__device__ __forceinline__ float kl_term(float m, float v) {
+  return __fsub_rn(__fmaf_rn(-m, m, __fadd_rn(1.f, v)), ex2_approx(__fmul_rn(v, LOG2E)));
+}
+
+// A thread's SUM_GROUP elements from i added to acc in index order. FULL:
+// all lie below n and both pointers are 16-byte aligned, so every load is
+// a 16-byte vector issued before the math; otherwise scalar loads of the
+// elements below n, added in the same order.
+template <bool FULL, typename T>
+__device__ __forceinline__ float kl_group(const T* __restrict__ mu, const T* __restrict__ lv,
+                                          long long i, long long n, float acc) {
+  float m[SUM_GROUP], v[SUM_GROUP];
+  if constexpr (FULL) {
+    load8(mu + i, m);
+    load8(lv + i, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < SUM_GROUP; ++j) {
+      m[j] = i + j < n ? to_f32(mu[i + j]) : 0.f;
+      v[j] = i + j < n ? to_f32(lv[i + j]) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SUM_GROUP; ++j)
+    if (FULL || i + j < n) acc = __fadd_rn(acc, kl_term(m[j], v[j]));
+  return acc;
+}
+
+// K5: one block; trip c takes elements c·SUM_CHUNK + 8t .. + 7 in thread t.
 template <typename T>
 __global__ void __launch_bounds__(SUM_THREADS)
 kl_sum_kernel(const T* __restrict__ mu, const T* __restrict__ lv,
-              float* __restrict__ out, long long n) {
+              float* __restrict__ out, long long n, bool vec) {
   float acc = 0.f;
-  for (long long i = threadIdx.x; i < n; i += SUM_THREADS) {
-    const float m = to_f32(mu[i]), v = to_f32(lv[i]);
-    acc += 1.f + v - m * m - expf(v);
+  for (long long c = 0; c * SUM_CHUNK < n; ++c) {
+    const long long i = c * SUM_CHUNK + threadIdx.x * SUM_GROUP;
+    acc = vec && i + SUM_GROUP <= n ? kl_group<true>(mu, lv, i, n, acc)
+                                    : kl_group<false>(mu, lv, i, n, acc);
   }
   acc = block_sum<SUM_THREADS>(acc);
-  if (threadIdx.x == 0) out[0] = -0.5f * acc;
+  if (threadIdx.x == 0) out[0] = __fmul_rn(-0.5f, acc);
 }
 
 template <typename T>
@@ -59,13 +128,15 @@ extern "C" int mvk_kl_sum(const void* mu, const void* lv, int kind, float* out,
                           long long n, cudaStream_t stream) {
   using namespace mvk;
   if (n < 0) return cudaErrorInvalidValue;
+  const bool vec = reinterpret_cast<uintptr_t>(mu) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(lv) % 16 == 0;
   if (kind == kF32)
     kl_sum_kernel<float><<<1, SUM_THREADS, 0, stream>>>(
-        static_cast<const float*>(mu), static_cast<const float*>(lv), out, n);
+        static_cast<const float*>(mu), static_cast<const float*>(lv), out, n, vec);
   else if (kind == kBF16)
     kl_sum_kernel<__nv_bfloat16><<<1, SUM_THREADS, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(mu),
-        static_cast<const __nv_bfloat16*>(lv), out, n);
+        static_cast<const __nv_bfloat16*>(lv), out, n, vec);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

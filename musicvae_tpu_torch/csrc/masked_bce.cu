@@ -59,9 +59,15 @@
 //   and so did fewer or more blocks. A streaming store of K4's tile gained
 //   nothing and is not used (the backward reads the tile next).
 //
-// K3 (`bce_bwd`) is a grid-stride loop, 4 cells a thread a step with one
-// vector load per operand; σ(l) from expf(−|l|) as 1/(1+e) for l ≥ 0 and
-// e/(1+e) below, precise expf and IEEE division.
+// K3 (`bce_bwd`) is the same pass in a third mode: K2/K4's geometry, loads
+// and mask registers, only σ(l) of `bce_cell` (one ex2, one rcp), and
+// d = ((σ − x)·mask)·g in f32 in that order, cast to the logits' type and
+// stored as one vector a thread (a default store: the decoder head's
+// backward reads dl next). There is no sum and so no partials or ticket.
+// Its σ(l) and (σ − x)·mask are K4's very operations, so for every type
+// pair dl = (K4's tile · g).to(logits' type) bit for bit: the two
+// differentiated paths, `masked_bce_sum` and `masked_bce_sum_dual`, give
+// the same gradient bits, which chip_smoke.py checks.
 
 #include "common.cuh"
 
@@ -70,82 +76,11 @@ namespace {
 
 constexpr int THREADS = 256;
 
-template <int VEC, typename T>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float* out) {
-  if constexpr (VEC == 1) {
-    out[0] = to_f32(p[0]);
-  } else {
-    static_assert(VEC == 4, "vector width");
-    constexpr int BYTES = VEC * static_cast<int>(sizeof(T));
-    alignas(16) T tmp[VEC];
-    if constexpr (BYTES == 16)
-      *reinterpret_cast<uint4*>(tmp) = __ldg(reinterpret_cast<const uint4*>(p));
-    else if constexpr (BYTES == 8)
-      *reinterpret_cast<uint2*>(tmp) = __ldg(reinterpret_cast<const uint2*>(p));
-    else
-      *reinterpret_cast<unsigned int*>(tmp) =
-          __ldg(reinterpret_cast<const unsigned int*>(p));
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) out[k] = to_f32(tmp[k]);
-  }
-}
-
-template <int VEC, typename T>
-__device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v) {
-  if constexpr (VEC == 1) {
-    p[0] = from_f32<T>(v[0]);
-  } else {
-    static_assert(VEC == 4, "vector width");
-    constexpr int BYTES = VEC * static_cast<int>(sizeof(T));
-    alignas(16) T tmp[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) tmp[k] = from_f32<T>(v[k]);
-    if constexpr (BYTES == 16)
-      *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(tmp);
-    else
-      *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(tmp);
-  }
-}
-
-__device__ __forceinline__ float sigmoid_from(float l, float e) {
-  const float inv = __fdiv_rn(1.f, 1.f + e);
-  return l >= 0.f ? inv : e * inv;
-}
-
-// K3: dl = (σ(l) − x)·mask·g in the logits' type.
-template <typename TL, typename TX, int VEC>
-__global__ void __launch_bounds__(THREADS)
-bce_bwd(const TL* __restrict__ logits, const TX* __restrict__ x,
-        const float* __restrict__ mask, const float* __restrict__ g_ptr,
-        TL* __restrict__ dl, long long n, int p) {
-  const float gs = __ldg(g_ptr);
-  const long long groups = n / VEC;
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  for (long long g = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-       g < groups; g += stride) {
-    float l[VEC], t[VEC], d[VEC];
-    load_vec<VEC>(logits + g * VEC, l);
-    load_vec<VEC>(x + g * VEC, t);
-    const int col = static_cast<int>((g * VEC) % p);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const float e = expf(-fabsf(l[k]));
-      d[k] = (sigmoid_from(l[k], e) - t[k]) * __ldg(mask + col + k) * gs;
-    }
-    store_vec<VEC>(dl + g * VEC, d);
-  }
-}
-
 bool aligned(const void* ptr, size_t bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
 
-template <typename TL, typename TX>
-bool can_vectorize(const TL* l, const TX* t, int p) {
-  return p % 4 == 0 && aligned(l, 4 * sizeof(TL)) && aligned(t, 4 * sizeof(TX));
-}
-
-// -- K2 and K4 ---------------------------------------------------------------
+// -- K2, K4 and K3 -----------------------------------------------------------
 
 constexpr int GROUP = 4;                            // cells a thread takes a chunk
 constexpr int CHUNK = THREADS * GROUP;              // cells a block takes at once
@@ -172,20 +107,27 @@ constexpr float L1P_C2 = 0.4002161920070648f;
 constexpr float L1P_C3 = 0.2800081670284271f;
 constexpr float L1P_C4 = 0.28015294671058655f;
 
-// One cell: the BCE term into `bce`, and with DUAL σ(l) into `sig`.
-template <bool DUAL>
+// What a pass computes: K2 the sum, K4 the sum and the f32 tile
+// (σ − x)·mask, K3 dl = ((σ − x)·mask)·g in the logits' type.
+enum Mode : int { kSum, kDual, kBwd };
+
+// One cell: the BCE term into `bce` (K2, K4) and σ(l) into `sig` (K4, K3).
+// Both halves share e, u, w and q, and σ's arithmetic exists only here.
+template <int MODE>
 __device__ __forceinline__ void bce_cell(float l, float t, float& bce, float& sig) {
   const float e = ex2_approx(__fmul_rn(fabsf(l), NEG_LOG2E));
   const float u = __fadd_rn(1.f, e), w = __fadd_rn(2.f, e);
   const float q = rcp_approx(__fmul_rn(u, w));
-  const float s = __fmul_rn(e, __fmul_rn(u, q));
-  const float z = __fmul_rn(s, s);
-  float poly = __fmaf_rn(L1P_C4, z, L1P_C3);
-  poly = __fmaf_rn(poly, z, L1P_C2);
-  poly = __fmaf_rn(poly, z, L1P_C1);
-  poly = __fmaf_rn(poly, z, L1P_C0);
-  bce = __fadd_rn(__fmaf_rn(-l, t, fmaxf(l, 0.f)), __fmul_rn(s, poly));
-  if constexpr (DUAL) {
+  if constexpr (MODE != kBwd) {
+    const float s = __fmul_rn(e, __fmul_rn(u, q));
+    const float z = __fmul_rn(s, s);
+    float poly = __fmaf_rn(L1P_C4, z, L1P_C3);
+    poly = __fmaf_rn(poly, z, L1P_C2);
+    poly = __fmaf_rn(poly, z, L1P_C1);
+    poly = __fmaf_rn(poly, z, L1P_C0);
+    bce = __fadd_rn(__fmaf_rn(-l, t, fmaxf(l, 0.f)), __fmul_rn(s, poly));
+  }
+  if constexpr (MODE != kSum) {
     const float r = __fmul_rn(w, q);
     sig = l >= 0.f ? r : __fmul_rn(e, r);
   }
@@ -210,16 +152,29 @@ __device__ __forceinline__ void load_group(const uint8_t* p, float* v) {
     v[j] = __uint_as_float(__byte_perm(r, 0x4B000000u, 0x7440 + j)) - 8388608.f;
 }
 
-// A thread's 4 cells from cell g: the loads, the math, then (DUAL) the
-// tile's stores. FULL: all 4 cells lie inside [0, n) and every pointer is
-// aligned for vector access; otherwise scalar accesses, and cells at or
-// past n skipped, in the same order, so the sum's bits do not depend on
-// which.
-template <typename TL, typename TX, bool DUAL, bool FIXED, bool FULL>
+// A thread's 4 results by one default vector store (the next kernel reads
+// them): K4's f32 tile, K3's dl in f32 or bf16 (round to nearest even, as
+// from_f32).
+__device__ __forceinline__ void store_group(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_group(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// A thread's 4 cells from cell g: the loads, the math, then (K4, K3) the
+// stores. FULL: all 4 cells lie inside [0, n) and every pointer is aligned
+// for vector access; otherwise scalar accesses, and cells at or past n
+// skipped, in the same order, so no result's bits depend on which. `gs` is
+// K3's upstream gradient.
+template <typename TL, typename TX, int MODE, bool FIXED, bool FULL, typename TO>
 __device__ __forceinline__ void bce_group(const TL* __restrict__ logits, const TX* __restrict__ x,
-                                          const float* __restrict__ mask, float* __restrict__ tile,
+                                          const float* __restrict__ mask, TO* __restrict__ out,
                                           long long g, long long n, int p, const float* m,
-                                          float& acc) {
+                                          float gs, float& acc) {
   float l[GROUP], t[GROUP], d[GROUP];
   if constexpr (FULL) {
     load_group(logits + g, l);
@@ -236,31 +191,30 @@ __device__ __forceinline__ void bce_group(const TL* __restrict__ logits, const T
     if (!FULL && g + j >= n) continue;
     const float mk = FIXED ? m[j] : __ldg(mask + (g + j) % p);
     float bce, sig;
-    bce_cell<DUAL>(l[j], t[j], bce, sig);
-    acc = __fmaf_rn(bce, mk, acc);
-    if constexpr (DUAL) d[j] = __fmul_rn(__fsub_rn(sig, t[j]), mk);
+    bce_cell<MODE>(l[j], t[j], bce, sig);
+    if constexpr (MODE != kBwd) acc = __fmaf_rn(bce, mk, acc);
+    if constexpr (MODE != kSum) d[j] = __fmul_rn(__fsub_rn(sig, t[j]), mk);
+    if constexpr (MODE == kBwd) d[j] = __fmul_rn(d[j], gs);
   }
-  if constexpr (DUAL) {
+  if constexpr (MODE != kSum) {
     if constexpr (FULL) {
-      *reinterpret_cast<float4*>(tile + g) = make_float4(d[0], d[1], d[2], d[3]);
+      store_group(out + g, d);
     } else {
 #pragma unroll
       for (int j = 0; j < GROUP; ++j)
-        if (g + j < n) tile[g + j] = d[j];
+        if (g + j < n) out[g + j] = from_f32<TO>(d[j]);
     }
   }
 }
 
-// K2 (DUAL = false) and K4 (DUAL = true): the sum into out[0] in one launch
-// of sum_geometry(n, p).blocks blocks; `ticket` is 0 before and after.
-// Block b takes chunks b, b + blocks, ... in that order, thread t cells
-// 4t..4t+3 of each.
-template <typename TL, typename TX, bool DUAL, bool FIXED>
-__global__ void __launch_bounds__(THREADS)
-bce_sum(const TL* __restrict__ logits, const TX* __restrict__ x,
-        const float* __restrict__ mask, float* __restrict__ partials,
-        unsigned* __restrict__ ticket, float* __restrict__ out,
-        float* __restrict__ tile, long long n, int p, long long chunks, bool vec) {
+// The pass of one block: chunks blockIdx.x, + gridDim.x, ... in that
+// order, thread t cells 4t..4t+3 of each; returns the thread's sum (K2,
+// K4). Where p divides CHUNK a thread's 4 mask values are read once.
+template <typename TL, typename TX, int MODE, bool FIXED, typename TO>
+__device__ __forceinline__ float bce_pass(const TL* __restrict__ logits, const TX* __restrict__ x,
+                                          const float* __restrict__ mask, TO* __restrict__ out,
+                                          long long n, int p, long long chunks, bool vec,
+                                          float gs) {
   float m[GROUP] = {};
   if constexpr (FIXED) {
 #pragma unroll
@@ -270,10 +224,23 @@ bce_sum(const TL* __restrict__ logits, const TX* __restrict__ x,
   for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
     const long long g = c * CHUNK + threadIdx.x * GROUP;
     if (vec && (c + 1) * CHUNK <= n)
-      bce_group<TL, TX, DUAL, FIXED, true>(logits, x, mask, tile, g, n, p, m, acc);
+      bce_group<TL, TX, MODE, FIXED, true>(logits, x, mask, out, g, n, p, m, gs, acc);
     else
-      bce_group<TL, TX, DUAL, FIXED, false>(logits, x, mask, tile, g, n, p, m, acc);
+      bce_group<TL, TX, MODE, FIXED, false>(logits, x, mask, out, g, n, p, m, gs, acc);
   }
+  return acc;
+}
+
+// K2 (DUAL = false) and K4 (DUAL = true): the sum into out[0] in one launch
+// of sum_geometry(n, p).blocks blocks; `ticket` is 0 before and after.
+template <typename TL, typename TX, bool DUAL, bool FIXED>
+__global__ void __launch_bounds__(THREADS)
+bce_sum(const TL* __restrict__ logits, const TX* __restrict__ x,
+        const float* __restrict__ mask, float* __restrict__ partials,
+        unsigned* __restrict__ ticket, float* __restrict__ out,
+        float* __restrict__ tile, long long n, int p, long long chunks, bool vec) {
+  float acc = bce_pass<TL, TX, DUAL ? kDual : kSum, FIXED>(logits, x, mask, tile, n, p,
+                                                           chunks, vec, 0.f);
   acc = block_sum<THREADS>(acc);
   __shared__ bool last;
   if (threadIdx.x == 0) {
@@ -294,6 +261,16 @@ bce_sum(const TL* __restrict__ logits, const TX* __restrict__ x,
   }
 }
 
+// K3: dl = ((σ(l) − x)·mask)·g[0] in the logits' type, one launch of
+// sum_geometry(n, p).blocks blocks.
+template <typename TL, typename TX, bool FIXED>
+__global__ void __launch_bounds__(THREADS)
+bce_bwd(const TL* __restrict__ logits, const TX* __restrict__ x,
+        const float* __restrict__ mask, const float* __restrict__ g_ptr,
+        TL* __restrict__ dl, long long n, int p, long long chunks, bool vec) {
+  bce_pass<TL, TX, kBwd, FIXED>(logits, x, mask, dl, n, p, chunks, vec, __ldg(g_ptr));
+}
+
 template <typename TL, typename TX, bool DUAL>
 cudaError_t launch_sum(const void* logits, const void* x, const float* mask,
                        float* partials, unsigned* ticket, float* out, float* tile,
@@ -302,7 +279,7 @@ cudaError_t launch_sum(const void* logits, const void* x, const float* mask,
   const TX* t = static_cast<const TX*>(x);
   const SumGeometry geo = sum_geometry(n, p);
   const bool vec = aligned(l, GROUP * sizeof(TL)) && aligned(t, GROUP * sizeof(TX)) &&
-                   (!DUAL || aligned(tile, 16));
+                   (!DUAL || aligned(tile, GROUP * sizeof(float)));
   if (geo.fixed_col)
     bce_sum<TL, TX, DUAL, true><<<geo.blocks, THREADS, 0, stream>>>(
         l, t, mask, partials, ticket, out, tile, n, p, geo.chunks, vec);
@@ -314,15 +291,19 @@ cudaError_t launch_sum(const void* logits, const void* x, const float* mask,
 
 template <typename TL, typename TX>
 cudaError_t launch_bwd(const void* logits, const void* x, const float* mask,
-                       const float* g, void* dl, long long n, int p, int blocks,
-                       cudaStream_t stream) {
+                       const float* g, void* dl, long long n, int p, cudaStream_t stream) {
   const TL* l = static_cast<const TL*>(logits);
   const TX* t = static_cast<const TX*>(x);
   TL* d = static_cast<TL*>(dl);
-  if (can_vectorize(l, t, p) && aligned(d, 4 * sizeof(TL)))
-    bce_bwd<TL, TX, 4><<<blocks, THREADS, 0, stream>>>(l, t, mask, g, d, n, p);
+  const SumGeometry geo = sum_geometry(n, p);
+  const bool vec = aligned(l, GROUP * sizeof(TL)) && aligned(t, GROUP * sizeof(TX)) &&
+                   aligned(d, GROUP * sizeof(TL));
+  if (geo.fixed_col)
+    bce_bwd<TL, TX, true><<<geo.blocks, THREADS, 0, stream>>>(l, t, mask, g, d, n, p,
+                                                              geo.chunks, vec);
   else
-    bce_bwd<TL, TX, 1><<<blocks, THREADS, 0, stream>>>(l, t, mask, g, d, n, p);
+    bce_bwd<TL, TX, false><<<geo.blocks, THREADS, 0, stream>>>(l, t, mask, g, d, n, p,
+                                                               geo.chunks, vec);
   return cudaGetLastError();
 }
 
@@ -359,9 +340,9 @@ struct SumArgs {
 
 struct BwdArgs {
   const void* logits; const void* x; const float* mask; const float* g;
-  void* dl; long long n; int p; int blocks; cudaStream_t stream;
+  void* dl; long long n; int p; cudaStream_t stream;
   template <typename TL, typename TX> cudaError_t operator()() const {
-    return launch_bwd<TL, TX>(logits, x, mask, g, dl, n, p, blocks, stream);
+    return launch_bwd<TL, TX>(logits, x, mask, g, dl, n, p, stream);
   }
 };
 
@@ -394,9 +375,9 @@ extern "C" int mvk_masked_bce_sum_dual(const void* logits, int l_kind,
                                                 tile, n, p, stream});
 }
 
-// K2 and K4's launch for n cells of p pitches, for checks against
-// ops/fused_elbo.py `sum_geometry`: out = {chunks, blocks, fixed_col,
-// CHUNK, MAX_BLOCKS}.
+// The launch of K2, K4 and K3 (each launches `sum_geometry(n, p)`) for n
+// cells of p pitches, for checks against ops/fused_elbo.py `sum_geometry`:
+// out = {chunks, blocks, fixed_col, CHUNK, MAX_BLOCKS}.
 extern "C" void mvk_masked_bce_sum_geometry(long long n, int p, long long* out) {
   using namespace mvk;
   const SumGeometry geo = sum_geometry(n, p);
@@ -407,14 +388,12 @@ extern "C" void mvk_masked_bce_sum_geometry(long long n, int p, long long* out) 
   out[4] = MAX_BLOCKS;
 }
 
-// K3. dl [n] of l_kind receives (σ(l) − x)·mask·g[0]; g: one f32 on the
+// K3. dl [n] of l_kind receives ((σ(l) − x)·mask)·g[0]; g: one f32 on the
 // device.
 extern "C" int mvk_masked_bce_bwd(const void* logits, int l_kind, const void* x,
                                   int x_kind, const float* mask, const float* g,
-                                  void* dl, long long n, int p, int blocks,
-                                  cudaStream_t stream) {
+                                  void* dl, long long n, int p, cudaStream_t stream) {
   using namespace mvk;
-  if (blocks <= 0 || p <= 0) return cudaErrorInvalidValue;
-  return dispatch_kinds(l_kind, x_kind,
-                        BwdArgs{logits, x, mask, g, dl, n, p, blocks, stream});
+  if (n < 0 || p <= 0) return cudaErrorInvalidValue;
+  return dispatch_kinds(l_kind, x_kind, BwdArgs{logits, x, mask, g, dl, n, p, stream});
 }

@@ -31,7 +31,7 @@ from musicvae_tpu_torch.ops import _kernels, losses
 _THREADS = 256                # csrc/masked_bce.cu THREADS
 _KL_BWD_THREADS = 256         # csrc/kl.cu BWD_THREADS
 
-# Launch geometry of the sum kernels K2 and K4, mirrored from
+# Launch geometry of the BCE kernels K2, K4 and K3, mirrored from
 # csrc/masked_bce.cu (``sum_geometry``): a chunk is SUM_CHUNK consecutive
 # cells, thread t of a block takes cells 4t..4t+3 of it, block b takes
 # chunks b, b + blocks, ...; the grid is a block a chunk, at most
@@ -49,18 +49,12 @@ class SumGeometry(NamedTuple):
 
 
 def sum_geometry(n: int, p: int) -> SumGeometry:
-    """The sum kernels' launch for ``n`` cells of ``p`` pitches: the blocks
+    """The BCE kernels' launch for ``n`` cells of ``p`` pitches: the blocks
     are a function of ``n`` alone (never of the card or the pointers), and
     so are the order of the additions and the sum's bits."""
     chunks = -(-n // SUM_CHUNK)
     return SumGeometry(chunks, max(1, min(chunks, SUM_MAX_BLOCKS)),
                        SUM_CHUNK % p == 0)
-
-
-def bwd_blocks(n: int) -> int:
-    """The backward kernel's grid for ``n`` cells: a grid-stride loop of 4
-    cells a thread a step, about 16 cells a thread, at most 1024 blocks."""
-    return max(1, min(-(-n // (_THREADS * 16)), 1024))
 
 
 _workspaces: dict = {}
@@ -159,7 +153,7 @@ def _bce_bwd(logits, x, mask, g):
     rc = _kernels.lib().mvk_masked_bce_bwd(
         logits.data_ptr(), _kernels.KINDS[logits.dtype], x.data_ptr(),
         _kernels.KINDS[x.dtype], mask.data_ptr(), g.data_ptr(),
-        dl.data_ptr(), n, p, bwd_blocks(n), _kernels.stream_of(logits))
+        dl.data_ptr(), n, p, _kernels.stream_of(logits))
     _kernels.check(rc, name)
     _kernels.LAUNCHES[name] += 1
     return dl

@@ -1,12 +1,14 @@
-"""What surrounds the masked-BCE sum kernels K2 and K4 (musicvae_tpu_torch/
-csrc/masked_bce.cu ``bce_sum``), checked on the CPU where the kernels cannot
-run: the launch geometry that ops/fused_elbo.py mirrors (``sum_geometry``),
-the order in which a block takes its chunks and a thread its cells, the
-fixed-column mask path, the workspace, and the per-cell formulation (``bce_cell``: one ex2, one rcp, a degree-4 polynomial for
-log1p) written in plain torch with exact ``exp2`` and division standing in
-for the MUFU's. The card holds the kernels themselves against their plain
-versions (chip_smoke.py), and also checks there that the C side's geometry
-equals ``sum_geometry``."""
+"""What surrounds the masked-BCE kernels K2, K4 (musicvae_tpu_torch/
+csrc/masked_bce.cu ``bce_sum``) and K3 (``bce_bwd``), checked on the CPU
+where the kernels cannot run: the launch geometry that ops/fused_elbo.py
+mirrors (``sum_geometry``, the three kernels' one geometry), the order in
+which a block takes its chunks and a thread its cells, the fixed-column
+mask path, the workspace, and the per-cell formulation (``bce_cell``: one
+ex2, one rcp, a degree-4 polynomial for log1p; K3 takes only its σ half)
+written in plain torch with exact ``exp2`` and division standing in for the
+MUFU's. The card holds the kernels themselves against their plain versions
+(chip_smoke.py), and also checks there that the C side's geometry equals
+``sum_geometry``."""
 
 from __future__ import annotations
 
@@ -145,8 +147,26 @@ def test_workspace_made_once_per_device_and_stream():
 @pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 12345 * 128,
                                64 * 4 * 96 * 128, 10 ** 8])
 def test_backward_grid_unchanged(n):
-    """K3 keeps its grid: ceil(n / 4096) blocks, at least 1, at most 1024."""
-    assert fused_elbo.bwd_blocks(n) == max(1, min(-(-n // 4096), 1024))
+    """K3 launches K2/K4's geometry (the grid that was ceil(n / 4096)
+    blocks is gone): ``sum_geometry(n, 128)``, block b taking chunks b,
+    b + blocks, ..., each chunk's cells once, so every cell below n gets
+    its dl written exactly once and every block has a chunk (n = 0: one
+    block and no chunk)."""
+    geo = fused_elbo.sum_geometry(n, 128)
+    assert geo.chunks == -(-n // C["CHUNK"])
+    assert geo.blocks == max(1, min(geo.chunks, C["MAX_BLOCKS"]))
+    assert geo.fixed_col
+    _, _, off = _thread_cells()
+    assert np.array_equal(np.sort(off), np.arange(C["CHUNK"]))
+    seen = np.zeros(geo.chunks, np.int64)
+    for b in range(geo.blocks):
+        seq = np.arange(b, geo.chunks, geo.blocks)
+        assert seq.size >= 1 or geo.chunks == 0
+        seen[seq] += 1
+    assert (seen == 1).all()
+    # the chunks tile [0, chunks·CHUNK) and only the last one is ragged
+    assert geo.chunks * C["CHUNK"] >= n > (geo.chunks - 1) * C["CHUNK"] \
+        or n == geo.chunks == 0
 
 
 # -- the per-cell formulation (bce_cell) in plain torch -----------------------
@@ -157,24 +177,47 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _fast_cell(l, t):
-    """``bce_cell``: (BCE, σ(l)) with exp2 and 1/v exact where the kernel
-    uses ex2.approx.ftz and rcp.approx.ftz; every other operation rounds to
-    f32 as the kernel's does."""
-    l, t = l.float(), t.float()
+def _exp_parts(l):
+    """``bce_cell``'s shared start: e = exp(−|l|), u = 1 + e, w = 2 + e,
+    q = 1/(u·w), with exp2 and 1/v exact where the kernel uses
+    ex2.approx.ftz and rcp.approx.ftz; every other operation rounds to f32
+    as the kernel's does."""
     e = torch.exp2(l.abs() * C["NEG_LOG2E"])
     e = torch.where(e < 2.0 ** -126, torch.zeros_like(e), e)   # .ftz
     u, w = 1.0 + e, 2.0 + e
-    q = 1.0 / (u * w)
+    return e, u, w, 1.0 / (u * w)
+
+
+def _fast_sigmoid(l):
+    """``bce_cell``'s σ half, all that K3 computes of a cell."""
+    e, _, w, q = _exp_parts(l)
+    r = w * q
+    return torch.where(l >= 0.0, r, e * r)
+
+
+def _fast_cell(l, t):
+    """``bce_cell``: (BCE, σ(l))."""
+    l, t = l.float(), t.float()
+    e, u, w, q = _exp_parts(l)
     s = e * (u * q)
     z = s * s
     poly = _fma(torch.full_like(z, C["L1P_C4"]), z, torch.full_like(z, C["L1P_C3"]))
     for name in ("L1P_C2", "L1P_C1", "L1P_C0"):
         poly = _fma(poly, z, torch.full_like(z, C[name]))
     bce = _fma(-l, t, torch.clamp_min(l, 0.0)) + s * poly
-    r = w * q
-    sig = torch.where(l >= 0.0, r, e * r)
-    return bce, sig
+    return bce, _fast_sigmoid(l)
+
+
+def _fast_bwd(l, t, mk, g):
+    """K3's cell: ((σ(l) − x)·mask)·g, each operation rounded to f32 in
+    that order, as the kernel rounds (and as K4's tile times g does)."""
+    l, t = l.float(), t.float()
+    return ((_fast_sigmoid(l) - t) * mk) * g
+
+
+def _exact_bwd(l, t, mk, g):
+    """(σ(l) − x)·mask·g in f64 from the f32 inputs."""
+    return (torch.sigmoid(l.double()) - t.double()) * mk * g
 
 
 def _truth(l, t):
@@ -255,3 +298,37 @@ def test_fast_cell_special_values(v, t):
     assert float((bce - ref).abs()) <= BCE_TOL * max(1.0, float(ref.abs())) \
         + 1.2e-38
     assert float((sig - torch.sigmoid(l)).abs()) <= SIG_TOL
+
+
+# -- K3's cell: the σ half of bce_cell, times mask, times g -------------------
+
+@pytest.mark.parametrize("g", [1.0, 3.5])
+@pytest.mark.parametrize("t", [0.0, 1.0, 0.3, 0.77])
+def test_bwd_cell_dense_sweep(t, g):
+    """Over l ∈ [−40, 40] and masks of 1, 0.5 and 0, K3's cell is within
+    1e-6·max(1, g) of the exact gradient (the f32 tolerance that
+    chip_smoke.py holds K3 to against the plain version)."""
+    l = torch.linspace(-40.0, 40.0, 800_001, dtype=torch.float32)
+    x = torch.full_like(l, t)
+    for mk in (1.0, 0.5, 0.0):
+        got = _fast_bwd(l, x, mk, g)
+        assert got.dtype == torch.float32
+        err = (got.double() - _exact_bwd(l, x, mk, g)).abs().max()
+        assert float(err) <= 1e-6 * max(1.0, g)
+
+
+@pytest.mark.parametrize("g", [1.0, 3.5])
+@pytest.mark.parametrize("v", [0.0, -0.0, 1e-30, -1e-30, 88.0, -88.0, 1e30,
+                               -1e30])
+def test_bwd_cell_special_values(v, g):
+    """The special values of ``test_fast_cell_special_values``: finite,
+    and within 1e-6·max(1, g) of the exact gradient at every target and
+    mask."""
+    l = torch.tensor([v], dtype=torch.float32)
+    for t in (0.0, 1.0, 0.25):
+        x = torch.tensor([t], dtype=torch.float32)
+        for mk in (1.0, 0.5, 0.0):
+            got = _fast_bwd(l, x, mk, g)
+            assert torch.isfinite(got).all()
+            err = (got.double() - _exact_bwd(l, x, mk, g)).abs()
+            assert float(err) <= 1e-6 * max(1.0, g)

@@ -191,8 +191,16 @@ def test_bce_single_and_dual_agree_bit_for_bit_on_cpu():
     assert torch.equal(fa, fb) and torch.equal(a.grad, b.grad)
 
 
-def test_kl_sum_value_and_grads_match_pallas():
-    _, _, _, mu, lv = _elbo_inputs(8, z=24)
+@pytest.mark.parametrize("shape", [(3, 24), (64, 128), (7, 3, 50)])
+def test_kl_sum_value_and_grads_match_pallas(shape):
+    """The seed-8 [3,24] latents, the main path's [64,128] and a ragged
+    [7,3,50]."""
+    if shape == (3, 24):
+        _, _, _, mu, lv = _elbo_inputs(8, z=24)
+    else:
+        rng = np.random.default_rng(8)
+        mu = rng.standard_normal(shape).astype(np.float32)
+        lv = (0.5 * rng.standard_normal(shape)).astype(np.float32)
     for g in (1.0, 3.5):
         want = float(jfused.kl_sum_pallas(jnp.asarray(mu), jnp.asarray(lv)))
         wmu, wlv = jax.grad(lambda m, v: g * jfused.kl_sum_pallas(m, v),
