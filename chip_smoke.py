@@ -28,7 +28,13 @@ check does not hold:
    steps with the plain BCE, and 5 with the first conv's forward and
    backward kernels, must agree with it; a dispatch must not wait on the
    card; then steps/s, one step's device time and the device-busy share,
-   with and without deterministic algorithms.
+   with and without deterministic algorithms;
+8. ckpt: full-width c2_gru_4bar checkpoints: 20 steps with a save every
+   10 equal 10 steps restored from disk into a fresh state and 10 more,
+   bit for bit; a truncated latest step falls back to the one before and
+   is quarantined; the CLI trains, resumes, describes, evaluates (the
+   BCE kernel) and serves (the first-conv kernel) from the checkpoint;
+   save and restore times.
 
 The last lines are a "details:" JSON line with every check and timing,
 the card's name and power limit, the kernels JSON object, and
@@ -736,6 +742,25 @@ def _kl_checks(g, dev, details):
             check(same, f"unaligned inputs change K5's bits: {shape} {dtype}")
             details["k5_unaligned_same_bits"].append(
                 dict(shape=list(shape), dtype=str(dtype), same=same))
+            # K6 from the same unaligned views: its scalar loads, the
+            # aligned inputs' bits, and one launch a call
+            gdev = torch.full((), 3.5, device=dev)
+            d_u = fused_elbo._kl_bwd(mu_u, lv_u, gdev)
+            d_a = fused_elbo._kl_bwd(mu, lv, gdev)
+            same6 = all(torch.equal(u, a) for u, a in zip(d_u, d_a))
+            launches6 = (profiled_kernels(lambda: fused_elbo._kl_bwd(
+                mu, lv, gdev))[0], profiled_kernels(
+                lambda: fused_elbo._kl_bwd(mu_u, lv_u, gdev))[0])
+            log(f"K6 unaligned {list(shape)} {dtype}: the aligned inputs' "
+                f"bits: {same6}; device launches a call (aligned, "
+                f"unaligned): {launches6}")
+            check(same6, f"unaligned inputs change K6's bits: {shape} "
+                         f"{dtype}")
+            check(launches6 == (1, 1), f"K6 should launch one kernel a "
+                                       f"call: {launches6}")
+            details["k6_unaligned"].append(
+                dict(shape=list(shape), dtype=str(dtype), same=same6,
+                     launches_per_call=list(launches6)))
             # logvar over the whole of the model's clamp
             lv8 = (16.0 * torch.rand(shape, generator=g, device=dev) - 8.0
                    ).to(dtype)
@@ -750,6 +775,81 @@ def _kl_checks(g, dev, details):
     return err
 
 
+KL_BWD_VARIANTS = (1024, 256, 128)   # K6 threads a block: 1, 4 and 8
+#                                     blocks at the [64,128] latents
+
+
+def _start_kl_bwd_variants():
+    """Start one nvcc for each block size of KL_BWD_VARIANTS: kl.cu with
+    its BWD_THREADS line set to that size, built alone into a library of
+    its own under build/. Returns {threads: (directory, process)}."""
+    import shutil
+
+    from musicvae_tpu_torch.ops import _kernels
+
+    src = (_kernels.CSRC / "kl.cu").read_text()
+    line = re.search(r"^constexpr int BWD_THREADS = \d+;", src, re.M)
+    check(line is not None, "kl.cu has no BWD_THREADS line")
+    root = _kernels.BUILD_ROOT.parent / "kl_bwd_variants"
+    started = {}
+    for threads in KL_BWD_VARIANTS:
+        d = root / str(threads)
+        d.mkdir(parents=True, exist_ok=True)
+        shutil.copy(_kernels.CSRC / "common.cuh", d)
+        (d / "kl.cu").write_text(
+            src[:line.start()] + f"constexpr int BWD_THREADS = {threads};"
+            + src[line.end():])
+        started[threads] = (d, subprocess.Popen(
+            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+             str(d / "kl.cu"), "-o", str(d / "libkl.so")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return started
+
+
+def _kl_bwd_variants(started, mu, lv, g, flush):
+    """Each K6 variant called through its library's ``mvk_kl_bwd`` on the
+    kernels line's inputs: the shipped kernel's bits, then timed as K6 is
+    (cold L2, and alone)."""
+    import ctypes
+
+    from musicvae_tpu_torch.ops import _kernels, fused_elbo
+
+    want = fused_elbo._kl_bwd(mu, lv, g)
+    out = []
+    for threads, (d, proc) in started.items():
+        text = proc.communicate()[0]
+        check(proc.returncode == 0,
+              f"K6 variant of {threads} threads failed to build: "
+              f"{text[-3000:]}")
+        lib = ctypes.CDLL(str(d / "libkl.so"))
+        p_, i_, ll_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mvk_kl_bwd.argtypes = [p_, p_, i_, p_, p_, p_, ll_, p_]
+        lib.mvk_kl_bwd.restype = i_
+        dmu, dlv = torch.empty_like(mu), torch.empty_like(lv)
+
+        def call():
+            rc = lib.mvk_kl_bwd(
+                mu.data_ptr(), lv.data_ptr(), _kernels.KINDS[mu.dtype],
+                g.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), mu.numel(),
+                _kernels.stream_of(mu))
+            check(rc == 0, f"K6 variant launch failed with CUDA error {rc}")
+
+        call()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(dmu, want[0]) and torch.equal(dlv, want[1]))
+        check(same, f"K6 variant of {threads} threads differs from K6")
+        regs = {k: v for k, v in _ptxas_report(text).items()
+                if "kl_bwd" in k}
+        v = {"threads": threads,
+             "blocks": -(-mu.numel() // (8 * threads)),
+             "ms": time_ms(call, flush),
+             "kernel_only_ms": kernel_only_ms(call, flush, "kl_bwd"),
+             "same_bits": same, "ptxas": regs}
+        log(f"K6 variant {v}")
+        out.append(v)
+    return out
+
+
 def kernel_checks(seed: int, dev: torch.device):
     """Every kernel against its plain version, then timed at the main
     path's shapes. Returns the kernels line's entries (launches filled in
@@ -760,7 +860,9 @@ def kernel_checks(seed: int, dev: torch.device):
 
     g = torch.Generator(dev).manual_seed(seed)
     details = {"k1": [], "k1b": [], "k2": [], "k34": [], "k56": [],
-               "k5_lv8": [], "k5_unaligned_same_bits": []}
+               "k5_lv8": [], "k5_unaligned_same_bits": [],
+               "k6_unaligned": []}
+    k6_builds = _start_kl_bwd_variants()    # built while the checks run
     wb = {cc: (torch.randn((3, 3, cc), generator=g, device=dev) / 3.0,
                0.1 * torch.randn(cc, generator=g, device=dev))
           for cc in conv1.CHANNELS}
@@ -1018,6 +1120,7 @@ def kernel_checks(seed: int, dev: torch.device):
                  "torch.cat((mu, lv), out=f32 [2n]): reads 8n and writes 8n "
                  "bytes as K6 does, one launch, timed the same way",
                  kl_build, "kl_bwd_kernel<float"),
+        variants=_kl_bwd_variants(k6_builds, mu, lv, gdev, flush),
         **launch_floor))
     return entries, details
 
@@ -1508,6 +1611,208 @@ def train_phase(seed: int, dev: torch.device):
              "timings": timings, "grad_norm": norms})
 
 
+CKPT_STEPS = 20
+CKPT_EVERY = 10
+
+
+def _state_bits(state) -> list:
+    """Every tensor of a TrainState in a fixed order: params, moments,
+    count, step and EMA."""
+    sd = state.state_dict()
+    return ([sd["step"], sd["opt"]["count"]]
+            + [t for k in ("params", "ema") for t in (sd[k] or {}).values()]
+            + [t for k in ("mu", "nu") for t in sd["opt"][k].values()])
+
+
+def _cli(argv, stdin: str = ""):
+    """(rc, stdout, stderr) of the port's CLI run in this process, with
+    ``stdin`` as its standard input."""
+    from musicvae_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main([str(a) for a in argv])
+    finally:
+        sys.stdin = saved
+    return rc, out.getvalue(), err.getvalue()
+
+
+def ckpt_phase(seed: int, dev: torch.device, card: str):
+    """Checkpoints at full width on the card: (a) 20 steps with a save
+    every 10 equal, bit for bit, 10 steps restored from disk into a fresh
+    state and 10 more; (b) a truncated latest step falls back to step 10
+    and is quarantined; (c) the CLI trains, resumes, describes, evaluates
+    (K2 launched) and serves from the checkpoint (K1 launched), with and
+    without its EMA weights; (d) save and restore times, bytes on disk,
+    beside ``card`` (nvidia-smi's name and power limit)."""
+    import shutil
+    import tempfile
+
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.config import get_config
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.train import trainer
+
+    base = get_config("c2_gru_4bar")
+    cfg = base.replace(train=dataclasses.replace(
+        base.train, num_steps=CKPT_STEPS, log_every=5,
+        ckpt_every=CKPT_EVERY, eval_every=0, ema_decay=0.999, seed=seed))
+    ds = make_bar_cache(seed)
+    _kernels.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt_smoke_",
+                            dir=_kernels.BUILD_ROOT.parent)
+    out, runs = {}, {}
+    t_phase = time.perf_counter()
+    try:
+        # (a) bit-exact resume from disk
+        mgr = ckpt_io.make_manager(os.path.join(root, "a"))
+        logged_a, logged_b = [], []
+        _, state_a, last_a = trainer.train(
+            cfg, ds, ckpt_manager=mgr, device=dev,
+            log_fn=lambda s, m: logged_a.append((s, m)))
+        mgr.wait_until_finished()
+        check(mgr.all_steps() == [CKPT_EVERY, CKPT_STEPS],
+              f"steps on disk {mgr.all_steps()}")
+        _, state_b = trainer.create_state(cfg, device=dev, seed=seed + 1)
+        state_b, cfg_b = ckpt_io.restore(mgr, state_b, step=CKPT_EVERY)
+        check(int(state_b.step) == CKPT_EVERY, f"restored step "
+                                               f"{int(state_b.step)}")
+        check(ckpt_io.config_to_json(cfg_b) == ckpt_io.config_to_json(cfg),
+              "the restored config differs")
+        _, state_b, last_b = trainer.train(
+            cfg_b, ds, state=state_b,
+            log_fn=lambda s, m: logged_b.append((s, m)))
+        bits_a, bits_b = _state_bits(state_a), _state_bits(state_b)
+        same_state = len(bits_a) == len(bits_b) and all(
+            torch.equal(x, y) for x, y in zip(bits_a, bits_b))
+        same_metrics = all(torch.equal(last_a[k], last_b[k]) for k in last_a)
+        same_logged = logged_a[-2:] == logged_b
+        out["resume"] = {"tensors": len(bits_a), "same_state": same_state,
+                         "same_metrics": same_metrics,
+                         "same_logged": same_logged,
+                         "logged": logged_b}
+        log(f"ckpt (a): {CKPT_STEPS} steps against {CKPT_EVERY} restored "
+            f"from disk + {CKPT_STEPS - CKPT_EVERY}: same state "
+            f"{same_state} ({len(bits_a)} tensors: params, Adam moments, "
+            f"count, step, EMA), same metrics {same_metrics}, same logged "
+            f"{same_logged}")
+        check(same_state and same_metrics and same_logged,
+              "a run resumed from disk differs from the uninterrupted run")
+
+        # (d) save (host copy, then the write) and restore times
+        saves = []
+        for i in range(3):
+            m = ckpt_io.make_manager(os.path.join(root, f"t{i}"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(ckpt_io.save(m, state_a, cfg), "save refused")
+            t1 = time.perf_counter()
+            m.wait_until_finished()
+            t2 = time.perf_counter()
+            step_dir = m.step_dir(CKPT_STEPS)
+            nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+            _, fresh = trainer.create_state(cfg, device=dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            ckpt_io.restore(m, fresh)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            check(all(torch.equal(x, y) for x, y in zip(
+                _state_bits(fresh), bits_a)), "restored state differs")
+            saves.append({"host_copy_ms": (t1 - t0) * 1e3,
+                          "write_ms": (t2 - t1) * 1e3,
+                          "restore_ms": (t4 - t3) * 1e3, "bytes": nbytes})
+        n_params = sum(p.numel() for p in state_a.params)
+        out["timings"] = {"saves": saves, "params": n_params, "card": card}
+        log(f"ckpt (d): {card}: {n_params} params; save, restore and bytes "
+            f"on disk, three times: {saves} (host clock; host_copy_ms is "
+            f"save() returning after the copy to the host, write_ms the "
+            f"background write joined after it)")
+
+        # (b) a truncated latest step
+        latest = os.path.join(mgr.step_dir(CKPT_STEPS), ckpt_io.STATE_FILE)
+        with open(latest, "r+b") as f:
+            f.truncate(os.path.getsize(latest) // 2)
+        mgr = ckpt_io.make_manager(mgr.directory)
+        _, state_c = trainer.create_state(cfg, device=dev)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            state_c, _ = ckpt_io.restore(mgr, state_c)
+        quarantined = sorted(n for n in os.listdir(mgr.directory)
+                             if "corrupt" in n)
+        out["corrupt_latest"] = {"restored_step": int(state_c.step),
+                                 "steps": mgr.all_steps(),
+                                 "quarantined": quarantined,
+                                 "warnings": err.getvalue().splitlines()}
+        log(f"ckpt (b): truncated step {CKPT_STEPS}: {out['corrupt_latest']}")
+        check(int(state_c.step) == CKPT_EVERY
+              and mgr.all_steps() == [CKPT_EVERY]
+              and quarantined == [f"{CKPT_STEPS}.corrupt"],
+              f"corrupt latest not handled: {out['corrupt_latest']}")
+
+        # (c) the CLI on the card
+        cache = os.path.join(root, "cache.npz")
+        ds.save_npy(cache)
+        d = os.path.join(root, "cli")
+        common = ["--data", cache, "--ckpt-dir", d, "--log-dir",
+                  os.path.join(root, "logs"), "--ema-decay", "0.999"]
+        rc, o, e = _cli(["train", *common, "--steps", CKPT_EVERY])
+        check(rc == 0, f"CLI train: rc {rc}: {e[-2000:]}")
+        rc, o, e = _cli(["train", *common, "--steps", CKPT_STEPS,
+                         "--resume"])
+        check(rc == 0 and f"resumed from step {CKPT_EVERY}" in e,
+              f"CLI train --resume: rc {rc}: {e[-2000:]}")
+        rc, o, e = _cli(["describe", "--ckpt-dir", d])
+        check(rc == 0, f"CLI describe: rc {rc}: {e[-2000:]}")
+        described = json.loads(o)
+        check(described["steps"] == [CKPT_EVERY, CKPT_STEPS]
+              and described["ema"], f"describe: {described}")
+        _kernels.reset_launches()
+        rc, o, e = _cli(["eval", "--ckpt-dir", d, "--data", cache,
+                         "--batches", 2])
+        runs["ckpt_eval"] = dict(_kernels.LAUNCHES)
+        check(rc == 0, f"CLI eval: rc {rc}: {e[-2000:]}")
+        scores = dict(kv.split("=") for kv in o.split())
+        check(runs["ckpt_eval"]["masked_bce_sum"] == 2
+              and all(np.isfinite(float(v)) for v in scores.values()),
+              f"CLI eval: {scores}, launches {runs['ckpt_eval']}")
+        served = {}
+        for ema in (False, True):
+            _kernels.reset_launches()
+            rc, o, e = _cli(["serve", "--ckpt-dir", d, "--use-pallas-conv1"]
+                            + (["--ema"] if ema else []),
+                            stdin='{"id": 1, "seed": 3}\n')
+            launches = dict(_kernels.LAUNCHES)
+            resp = json.loads(o.splitlines()[0]) if o else {}
+            check(rc == 0 and len(resp.get("midi_b64", [])) == 4,
+                  f"CLI serve (ema {ema}): rc {rc}, {o[:300]}: "
+                  f"{e[-2000:]}")
+            # the warm-up sweep and the request, 16 bars each
+            check(launches["first_conv_s2"] == 32,
+                  f"CLI serve (ema {ema}): K1 launches {launches}")
+            ready = [ln for ln in e.splitlines() if ln.startswith("serving")]
+            check(len(ready) == 1 and ("EMA weights" in ready[0]) == ema,
+                  f"CLI serve (ema {ema}): {e[-2000:]}")
+            served["ema" if ema else "params"] = {
+                "density": resp["density"], "launches": launches,
+                "log": ready[0]}
+        runs["ckpt_serve"] = served["params"]["launches"]
+        out["cli"] = {"describe": described, "eval": scores,
+                      "serve": served}
+        log(f"ckpt (c): CLI describe {described}")
+        log(f"ckpt (c): CLI eval {scores}, launches {runs['ckpt_eval']}")
+        log(f"ckpt (c): CLI serve {served}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"ckpt phase: {out['seconds']:.1f} s")
+    return runs, out
+
+
 def profile_phase(seed: int, dev: torch.device):
     """Development aid, not part of the default run: where one train
     step's time goes. Which parts of a step the launch queue can hold
@@ -1593,7 +1898,8 @@ def profile_phase(seed: int, dev: torch.device):
     return out
 
 
-PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train")
+PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train",
+          "ckpt")
 
 
 def main() -> int:
@@ -1644,6 +1950,9 @@ def main() -> int:
     if "train" in only:
         train_runs, details["train"] = train_phase(args.seed, dev)
         runs.update(train_runs)
+    if "ckpt" in only:
+        ckpt_runs, details["ckpt"] = ckpt_phase(args.seed, dev, card)
+        runs.update(ckpt_runs)
     if "profile" in only:
         details["profile"] = profile_phase(args.seed, dev)
 

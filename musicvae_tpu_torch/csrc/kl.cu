@@ -30,7 +30,21 @@
 // exp's error, under 1e-6 relative an element for lv ∈ [−8, 8] (the model
 // clamps logvar to 8·tanh(lv/8)), keeps the sum within 1e-5.
 //
-// K6 is one elementwise pass, a thread an element. Precise expf.
+// K6 is one elementwise pass in K5's shape: thread t of the grid takes
+// the 8 elements from 8t, issuing all its loads (two 16-byte loads of each
+// of mu and lv in f32, one of each in bf16) before the math, and writes dmu
+// and dlv by 16-byte stores; unaligned pointers and the ragged end take
+// scalar loads and stores of the same elements. The grid comes from n
+// alone: a block of BWD_THREADS threads a chunk of BWD_CHUNK elements (the
+// [64,128] latents spread over 8 SMs, as no reduction ties them to one),
+// at most BWD_MAX_BLOCKS blocks, striding over the chunks beyond. Measured
+// on an H100 (PERF.md §6), 8 blocks of 128 threads beat 4 of 256 and one
+// of 1,024 at [64,128]; the kernel alone sits near its launch cost.
+// e^lv is precise expf, the bits torch's exp gives: dlv reaches ~27·g with
+// randn logvar, where an approximate exp's error would exceed the card's
+// check (1e-6·max(1, g) absolute against the plain version). The products
+// are written out as the plain version rounds them: mu·g, and
+// (0.5·(e^lv − 1))·g.
 
 #include "common.cuh"
 
@@ -40,7 +54,10 @@ namespace {
 constexpr int SUM_THREADS = 1024;
 constexpr int SUM_GROUP = 8;                          // elements a thread takes a trip: load8
 constexpr int SUM_CHUNK = SUM_THREADS * SUM_GROUP;    // elements a trip
-constexpr int BWD_THREADS = 256;
+constexpr int BWD_THREADS = 128;
+constexpr int BWD_GROUP = 8;                          // elements a thread: load8
+constexpr int BWD_CHUNK = BWD_THREADS * BWD_GROUP;    // elements a block a trip
+constexpr int BWD_MAX_BLOCKS = 1024;
 
 // A thread's 8 elements by 16-byte loads, all issued before their use.
 __device__ __forceinline__ void load8(const float* p, float* v) {
@@ -106,17 +123,73 @@ kl_sum_kernel(const T* __restrict__ mu, const T* __restrict__ lv,
   if (threadIdx.x == 0) out[0] = __fmul_rn(-0.5f, acc);
 }
 
+// 8 results by 16-byte stores.
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    w[k] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One thread's BWD_GROUP elements from i. FULL: all lie below n and all
+// four pointers are 16-byte aligned, so loads and stores are vectors;
+// otherwise scalar loads and stores of the elements below n.
+template <bool FULL, typename T>
+__device__ __forceinline__ void kl_bwd_group(const T* __restrict__ mu, const T* __restrict__ lv,
+                                             float g, T* __restrict__ dmu, T* __restrict__ dlv,
+                                             long long i, long long n) {
+  float m[BWD_GROUP], v[BWD_GROUP];
+  if constexpr (FULL) {
+    load8(mu + i, m);
+    load8(lv + i, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < BWD_GROUP; ++j) {
+      m[j] = i + j < n ? to_f32(mu[i + j]) : 0.f;
+      v[j] = i + j < n ? to_f32(lv[i + j]) : 0.f;
+    }
+  }
+  float a[BWD_GROUP], b[BWD_GROUP];
+#pragma unroll
+  for (int j = 0; j < BWD_GROUP; ++j) {
+    a[j] = __fmul_rn(m[j], g);
+    b[j] = __fmul_rn(__fmul_rn(0.5f, __fsub_rn(expf(v[j]), 1.f)), g);
+  }
+  if constexpr (FULL) {
+    store8(dmu + i, a);
+    store8(dlv + i, b);
+  } else {
+#pragma unroll
+    for (int j = 0; j < BWD_GROUP; ++j)
+      if (i + j < n) {
+        dmu[i + j] = from_f32<T>(a[j]);
+        dlv[i + j] = from_f32<T>(b[j]);
+      }
+  }
+}
+
+// K6: block b takes chunks b, b + gridDim.x, ...; thread t of a chunk
+// from c its 8 elements c·BWD_CHUNK + 8t .. + 7.
 template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS)
 kl_bwd_kernel(const T* __restrict__ mu, const T* __restrict__ lv,
               const float* __restrict__ g_ptr, T* __restrict__ dmu,
-              T* __restrict__ dlv, long long n) {
+              T* __restrict__ dlv, long long n, bool vec) {
   const float g = __ldg(g_ptr);
-  const long long stride = static_cast<long long>(gridDim.x) * BWD_THREADS;
-  for (long long i = static_cast<long long>(blockIdx.x) * BWD_THREADS + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * BWD_CHUNK;
+  for (long long i = static_cast<long long>(blockIdx.x) * BWD_CHUNK + threadIdx.x * BWD_GROUP;
        i < n; i += stride) {
-    dmu[i] = from_f32<T>(to_f32(mu[i]) * g);
-    dlv[i] = from_f32<T>(0.5f * (expf(to_f32(lv[i])) - 1.f) * g);
+    if (vec && i + BWD_GROUP <= n)
+      kl_bwd_group<true>(mu, lv, g, dmu, dlv, i, n);
+    else
+      kl_bwd_group<false>(mu, lv, g, dmu, dlv, i, n);
   }
 }
 
@@ -142,22 +215,30 @@ extern "C" int mvk_kl_sum(const void* mu, const void* lv, int kind, float* out,
   return cudaGetLastError();
 }
 
-// K6. dmu, dlv: n elements of `kind`; g: one f32 on the device.
+// K6. dmu, dlv: n elements of `kind`; g: one f32 on the device. The grid
+// comes from n: a block a chunk of BWD_CHUNK elements, at most
+// BWD_MAX_BLOCKS.
 extern "C" int mvk_kl_bwd(const void* mu, const void* lv, int kind,
                           const float* g, void* dmu, void* dlv, long long n,
-                          int blocks, cudaStream_t stream) {
+                          cudaStream_t stream) {
   using namespace mvk;
-  if (n <= 0) return cudaSuccess;
-  if (blocks <= 0) return cudaErrorInvalidValue;
+  if (n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const bool vec = reinterpret_cast<uintptr_t>(mu) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(lv) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dmu) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dlv) % 16 == 0;
+  const long long chunks = (n + BWD_CHUNK - 1) / BWD_CHUNK;
+  const int blocks = static_cast<int>(chunks < BWD_MAX_BLOCKS ? chunks : BWD_MAX_BLOCKS);
   if (kind == kF32)
     kl_bwd_kernel<float><<<blocks, BWD_THREADS, 0, stream>>>(
         static_cast<const float*>(mu), static_cast<const float*>(lv), g,
-        static_cast<float*>(dmu), static_cast<float*>(dlv), n);
+        static_cast<float*>(dmu), static_cast<float*>(dlv), n, vec);
   else if (kind == kBF16)
     kl_bwd_kernel<__nv_bfloat16><<<blocks, BWD_THREADS, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(mu),
         static_cast<const __nv_bfloat16*>(lv), g,
-        static_cast<__nv_bfloat16*>(dmu), static_cast<__nv_bfloat16*>(dlv), n);
+        static_cast<__nv_bfloat16*>(dmu), static_cast<__nv_bfloat16*>(dlv), n, vec);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

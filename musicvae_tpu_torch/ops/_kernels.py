@@ -126,7 +126,7 @@ def lib() -> ctypes.CDLL:
             handle.mvk_masked_bce_bwd.argtypes = [p, i, p, i, p, p, p, ll, i,
                                                   p]
             handle.mvk_kl_sum.argtypes = [p, p, i, p, ll, p]
-            handle.mvk_kl_bwd.argtypes = [p, p, i, p, p, p, ll, i, p]
+            handle.mvk_kl_bwd.argtypes = [p, p, i, p, p, p, ll, p]
             for name in LAUNCHES:       # one C entry point per kernel
                 getattr(handle, "mvk_" + name).restype = i
             _lib = handle

@@ -29,7 +29,6 @@ from torch.autograd.function import once_differentiable
 from musicvae_tpu_torch.ops import _kernels, losses
 
 _THREADS = 256                # csrc/masked_bce.cu THREADS
-_KL_BWD_THREADS = 256         # csrc/kl.cu BWD_THREADS
 
 # Launch geometry of the BCE kernels K2, K4 and K3, mirrored from
 # csrc/masked_bce.cu (``sum_geometry``): a chunk is SUM_CHUNK consecutive
@@ -267,11 +266,10 @@ def _kl_bwd(mu, logvar, g):
     g = g.to(torch.float32).contiguous()
     _kernels.check_cuda_inputs(name, mu.device, g=g)
     dmu, dlv = torch.empty_like(mu), torch.empty_like(logvar)
-    n = mu.numel()
     rc = _kernels.lib().mvk_kl_bwd(
         mu.data_ptr(), logvar.data_ptr(), _kernels.KINDS[mu.dtype],
-        g.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n,
-        max(1, -(-n // _KL_BWD_THREADS)), _kernels.stream_of(mu))
+        g.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), mu.numel(),
+        _kernels.stream_of(mu))
     _kernels.check(rc, name)
     _kernels.LAUNCHES[name] += 1
     return dmu, dlv

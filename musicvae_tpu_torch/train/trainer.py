@@ -27,15 +27,17 @@ What differs from the JAX package, and why:
 - ``use_pallas_loss`` takes effect on a CUDA device: the differentiated
   loss then goes through the dual-output BCE kernel (ops/fused_elbo.py).
 
-Checkpoint files, a preemption stop, streaming iterators, a device mesh and
-the sharded corpus layout are later items of ROADMAP.md: ``train`` refuses
-them by name.
+Checkpoints are checkpoints/io.py's files, and a preemption stop is
+train/preemption.py's single-process ``GracefulStop``. Streaming
+iterators, a device mesh and the sharded corpus layout are later items of
+ROADMAP.md: ``train`` refuses them by name.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import json
 import math
 import os
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -43,6 +45,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from musicvae_tpu_torch.checkpoints import io as ckpt_io
 from musicvae_tpu_torch.config import Config
 from musicvae_tpu_torch.midi.tensorize import pitch_mask
 from musicvae_tpu_torch.models.vae import PianoRollVAE, build_model
@@ -124,22 +127,34 @@ class Adam:
     ``adam_mu_dtype``, as optax does."""
 
     def __init__(self, cfg: Config, params: List[torch.Tensor]):
-        t = cfg.train
-        if t.adam_mu_dtype not in _MOMENT_DTYPES:
-            raise ValueError(f"adam_mu_dtype {t.adam_mu_dtype!r} not in "
-                             f"{tuple(_MOMENT_DTYPES)}")
         self.params = list(params)
-        self.b1, self.b2 = t.adam_b1, t.adam_b2
-        self.weight_decay = t.weight_decay
-        self.clip = t.grad_clip_norm
-        self.lr = make_lr(cfg)
-        self.mu_dtype = _MOMENT_DTYPES[t.adam_mu_dtype]
+        self.configure(cfg)
         self.mu = [torch.zeros_like(p, dtype=self.mu_dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         dev = self.params[0].device
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self._one = torch.ones((), dtype=torch.float32, device=dev)
+
+    def configure(self, cfg: Config) -> None:
+        """Take the hyperparameters of ``cfg.train``: betas, weight decay,
+        clip and lr schedule. The moments and the count stay, so a run
+        resumed under changed settings (``train --resume --lr ...``) goes
+        on with them, as the JAX package's does, whose optimizer is built
+        from the config of each run."""
+        t = cfg.train
+        if t.adam_mu_dtype not in _MOMENT_DTYPES:
+            raise ValueError(f"adam_mu_dtype {t.adam_mu_dtype!r} not in "
+                             f"{tuple(_MOMENT_DTYPES)}")
+        mu_dtype = _MOMENT_DTYPES[t.adam_mu_dtype]
+        if hasattr(self, "mu") and mu_dtype != self.mu_dtype:
+            raise ValueError(f"adam_mu_dtype cannot change from "
+                             f"{self.mu_dtype} on a state with moments")
+        self.b1, self.b2 = t.adam_b1, t.adam_b2
+        self.weight_decay = t.weight_decay
+        self.clip = t.grad_clip_norm
+        self.lr = make_lr(cfg)
+        self.mu_dtype = mu_dtype
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor],
@@ -213,27 +228,42 @@ class TrainState:
     def _names(self) -> List[str]:
         return [n for n, _ in self.model.named_parameters()]
 
-    def state_dict(self) -> Dict[str, Any]:
-        """A copy of the whole state, in memory: params, moments and EMA by
-        parameter name, count, step and the generator's state."""
+    def state_dict(self, device=None) -> Dict[str, Any]:
+        """A copy of the whole state: params, moments and EMA by parameter
+        name, count, step and the generator's state. ``device``: where the
+        copy goes (default the state's own device); a copy from the card to
+        the CPU waits for the card once, after every tensor's copy is
+        queued (checkpoints/io.py ``save``)."""
         names = self._names()
+        dev = self.step.device
+        to = dev if device is None else torch.device(device)
+
+        def copy(t):
+            t = t.detach()
+            return t.clone() if to == dev else t.to(to, non_blocking=True)
 
         def named(tensors):
-            return {n: t.detach().clone() for n, t in zip(names, tensors)}
+            return {n: copy(t) for n, t in zip(names, tensors)}
 
-        return {"params": named(self.params),
-                "opt": {"mu": named(self.opt.mu), "nu": named(self.opt.nu),
-                        "count": self.opt.count.clone()},
-                "step": self.step.clone(),
-                "rng": self.generator.get_state(),
-                "ema": (None if self.ema_model is None
-                        else named(self.ema_params))}
+        sd = {"params": named(self.params),
+              "opt": {"mu": named(self.opt.mu), "nu": named(self.opt.nu),
+                      "count": copy(self.opt.count)},
+              "step": copy(self.step),
+              "rng": self.generator.get_state(),
+              "ema": (None if self.ema_model is None
+                      else named(self.ema_params))}
+        if to != dev and dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        return sd
 
     @torch.no_grad()
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Overwrite this state with ``sd`` (a ``state_dict()``, or the
         same layout filled from a JAX run by checkpoints/convert.py). An
-        ``sd`` without "rng" keeps this state's generator."""
+        ``sd`` without "rng", or with the state of another kind of
+        generator (a CPU state's on a CUDA state, or the reverse), keeps
+        this state's generator: the noise of one kind cannot continue on
+        the other."""
         names = self._names()
 
         def load(dst, src, what):
@@ -248,8 +278,10 @@ class TrainState:
         load(self.opt.nu, sd["opt"]["nu"], "opt.nu")
         self.opt.count.copy_(torch.as_tensor(sd["opt"]["count"]))
         self.step.copy_(torch.as_tensor(sd["step"]))
-        if sd.get("rng") is not None:
-            self.generator.set_state(sd["rng"])
+        rng = sd.get("rng")
+        if rng is not None and rng.numel() == \
+                self.generator.get_state().numel():
+            self.generator.set_state(rng)
         if (sd.get("ema") is None) != (self.ema_model is None):
             raise ValueError("the state dict and this state disagree on "
                              "whether EMA weights are kept")
@@ -520,6 +552,18 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def _write_json_atomic(path: str, obj) -> None:
+    """Crash-safe JSON write: tmp + fsync + os.replace, so a reader never
+    sees a truncated file (the best-metric sidecar guards exactly the
+    crash-mid-write window)."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
 def train(cfg: Config,
           data: Any,
           num_steps: Optional[int] = None,
@@ -542,20 +586,25 @@ def train(cfg: Config,
     With ``eval_data`` (a held-out PianoRollDataset) and
     cfg.train.eval_every > 0, a deterministic eval sweep over a fixed
     partition runs every eval_every steps and is logged under ``eval_*``
-    keys (``eval_ema_*`` for the EMA weights when they are kept).
+    keys (``eval_ema_*`` for the EMA weights when they are kept). With
+    ``best_ckpt_manager`` the state with the lowest ``eval_loss`` so far is
+    saved there, and that loss is kept beside it in ``best_metric.json``,
+    which a resumed run reads, so its first eval cannot replace a better
+    earlier state.
 
-    The run is bit-reproducible (``deterministic_algorithms``).
-    ``ckpt_manager``, ``best_ckpt_manager``, ``stop``, ``mesh``, a
-    streaming iterator as ``data`` and ``corpus_layout="sharded"`` are not
-    ported yet and raise.
+    ``ckpt_manager`` (checkpoints/io.py) receives the state every
+    cfg.train.ckpt_every steps, at the end of a dispatch (``pick_k`` makes
+    dispatches end on those steps). ``stop`` (a preemption.GracefulStop,
+    or anything with a ``requested`` attribute) is read once a dispatch:
+    when set, the loop saves the exact step it reached into
+    ``ckpt_manager`` and returns.
+
+    The run is bit-reproducible (``deterministic_algorithms``). ``mesh``,
+    a streaming iterator as ``data`` and ``corpus_layout="sharded"`` are
+    not ported yet and raise.
 
     Returns (model, final_state, last_metrics); the metrics are device
     tensors."""
-    if ckpt_manager is not None or best_ckpt_manager is not None:
-        raise _later("checkpointing from train() (ckpt_manager, "
-                     "best_ckpt_manager)", "A8")
-    if stop is not None:
-        raise _later("a preemption stop", "A13")
     if mesh is not None:
         raise _later("training over a device mesh", "A13")
     if not hasattr(data, "bars"):
@@ -567,6 +616,7 @@ def train(cfg: Config,
         model, state = create_state(cfg, device=device)
     else:
         model = state.model
+        state.opt.configure(cfg)
     dev = next(model.parameters()).device
     num_steps = num_steps if num_steps is not None else cfg.train.num_steps
     b = cfg.train.batch_size
@@ -602,6 +652,18 @@ def train(cfg: Config,
                         acc.setdefault(prefix + mk, []).append(float(mv))
             return {mk: sum(mv) / len(mv) for mk, mv in acc.items()}
 
+        # the best eval loss so far persists beside the best checkpoint;
+        # an unreadable sidecar means a fresh best
+        best_eval_loss = float("inf")
+        if best_ckpt_manager is not None:
+            best_metric_path = os.path.join(best_ckpt_manager.directory,
+                                            "best_metric.json")
+            try:
+                with open(best_metric_path) as f:
+                    best_eval_loss = float(json.load(f)["eval_loss"])
+            except (OSError, ValueError, KeyError, TypeError):
+                pass
+
     k = pick_k(cfg, do_eval)
     sizes = dispatch_sizes(start_step, num_steps, k)
     data_dev = {"bars": _to_device(data.bars, dev),
@@ -623,4 +685,20 @@ def train(cfg: Config,
                 eval_metrics = run_eval()
                 if log_fn is not None:
                     log_fn(step, eval_metrics)
+                if (best_ckpt_manager is not None
+                        and eval_metrics["eval_loss"] < best_eval_loss):
+                    best_eval_loss = eval_metrics["eval_loss"]
+                    ckpt_io.save(best_ckpt_manager, state, cfg)
+                    os.makedirs(best_ckpt_manager.directory, exist_ok=True)
+                    _write_json_atomic(best_metric_path,
+                                       {"eval_loss": best_eval_loss,
+                                        "step": step})
+            saved = (ckpt_manager is not None and cfg.train.ckpt_every > 0
+                     and step % cfg.train.ckpt_every == 0)
+            if saved:
+                ckpt_io.save(ckpt_manager, state, cfg)
+            if stop is not None and stop.requested:
+                if ckpt_manager is not None and not saved:
+                    ckpt_io.save(ckpt_manager, state, cfg)
+                break
     return model, state, metrics

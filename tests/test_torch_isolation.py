@@ -28,7 +28,8 @@ print(" ".join(names), "|", ",".join(bad))
 """
 
 _NEW_MODULES = ("train.trainer", "data.dataset", "utils.logging",
-                "ops.augment", "ops.fused_elbo", "ops.conv1")
+                "ops.augment", "ops.fused_elbo", "ops.conv1",
+                "checkpoints.io", "train.preemption")
 
 _IMPORT_SMOKE = """
 import sys

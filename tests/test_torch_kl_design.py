@@ -6,7 +6,12 @@ and depends on n alone, and the same order in f32, with e^lv taken as the
 kernel takes it (2^(lv·log2 e), exact ``exp2`` standing in for the MUFU's
 ex2), gives the plain KL sum within 1e-5 relative. The card holds the
 kernel itself against its plain version (chip_smoke.py), and checks there
-that unaligned inputs give the aligned inputs' bits."""
+that unaligned inputs give the aligned inputs' bits.
+
+The KL backward K6 (``kl_bwd_kernel``): a mirror of its launch as
+``mvk_kl_bwd`` makes it from n and the pointers covers every element
+exactly once, by 16-byte vectors where the kernel takes them and by scalar
+loads and stores elsewhere."""
 
 from __future__ import annotations
 
@@ -180,3 +185,75 @@ def test_mirror_sum_matches_plain(shape, dtype, dist):
     want = float(losses.kl_diag_gaussian(mu, lv))
     got = float(_mirror_sum(mu.numpy(), lv.numpy()))
     assert abs(got - want) <= 1e-5 * abs(want)
+
+
+# -- K6 ----------------------------------------------------------------------
+
+def _bwd_blocks(n: int) -> int:
+    """``mvk_kl_bwd``'s grid: a block a chunk of BWD_CHUNK elements, at
+    most BWD_MAX_BLOCKS."""
+    chunks = -(-n // C["BWD_CHUNK"])
+    return min(chunks, C["BWD_MAX_BLOCKS"])
+
+
+def _bwd_vec(offsets, itemsize: int) -> bool:
+    """``mvk_kl_bwd``'s choice of vector loads and stores: mu, lv, dmu and
+    dlv all on 16-byte boundaries (``offsets`` in elements from a
+    16-byte-aligned allocation, as the card's allocator gives)."""
+    return all(off * itemsize % 16 == 0 for off in offsets)
+
+
+def _bwd_groups(n: int, vec: bool):
+    """(first element, vector?) of every group the kernel's threads take:
+    block b, thread t starts at b·BWD_CHUNK + t·BWD_GROUP and strides by
+    blocks·BWD_CHUNK while below n."""
+    group, chunk = C["BWD_GROUP"], C["BWD_CHUNK"]
+    blocks = _bwd_blocks(n)
+    g = np.arange(blocks * C["BWD_THREADS"], dtype=np.int64)
+    base = (g // C["BWD_THREADS"]) * chunk + (g % C["BWD_THREADS"]) * group
+    trips = -(-n // (blocks * chunk)) if n else 0
+    starts = (base[None, :] + blocks * chunk
+              * np.arange(trips, dtype=np.int64)[:, None]).ravel()
+    starts = starts[starts < n]
+    return starts, vec & (starts + group <= n)
+
+
+BWD_NS = NS + (C["BWD_MAX_BLOCKS"] * C["BWD_CHUNK"] + 12345,)
+BWD_LAYOUTS = [            # (itemsize, element offsets of mu, lv, dmu, dlv)
+    (4, (0, 0, 0, 0)), (4, (4, 0, 0, 0)), (4, (1, 1, 0, 0)),
+    (2, (8, 8, 0, 0)), (2, (0, 4, 0, 0)),
+]
+
+
+def test_bwd_constants():
+    """8 f32 elements are two 16-byte vectors of each operand, 8 bf16 one;
+    a block's threads fit one block's limit."""
+    assert C["BWD_CHUNK"] == C["BWD_THREADS"] * C["BWD_GROUP"]
+    assert C["BWD_THREADS"] % WARP == 0 and C["BWD_THREADS"] <= 1024
+    assert C["BWD_GROUP"] * 4 == 2 * 16 and C["BWD_GROUP"] * 2 == 16
+    assert _bwd_blocks(64 * 128) == -(-64 * 128 // C["BWD_CHUNK"])
+
+
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+@pytest.mark.parametrize("n", BWD_NS)
+def test_bwd_covers_each_element_once(n, layout):
+    """Every element below n is taken by exactly one thread, once; a
+    group goes by vectors exactly when all four pointers are aligned and
+    the group lies below n, and only the ragged end is scalar then."""
+    itemsize, offsets = layout
+    vec = _bwd_vec(offsets, itemsize)
+    assert vec == (layout in [(4, (0, 0, 0, 0)), (4, (4, 0, 0, 0)),
+                              (2, (8, 8, 0, 0))])
+    starts, vector = _bwd_groups(n, vec)
+    group = C["BWD_GROUP"]
+    assert np.all(starts % group == 0)
+    ends = np.minimum(starts + group, n)
+    hits = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(hits, starts, 1)
+    np.add.at(hits, ends, -1)
+    assert np.all(np.cumsum(hits)[:n] == 1)
+    scalar = starts[~vector]
+    if vec:
+        assert list(scalar) == ([n - n % group] if n % group else [])
+    else:
+        assert not vector.any()

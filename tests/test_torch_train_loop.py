@@ -8,6 +8,7 @@ bar cache is the JAX package's on disk.
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -168,15 +169,23 @@ def test_train_eval_is_the_same_sweep_every_time():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(ckpt_manager=object()), "A8"),
-    (dict(best_ckpt_manager=object()), "A8"),
-    (dict(stop=object()), "A13"),
     (dict(mesh=object()), "A13"),
 ])
 def test_train_refuses_unported_arguments(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         trainer.train(_cfg(), _dataset(), num_steps=1, device="cpu",
                       **kwargs)
+
+
+def test_train_returns_at_a_stop_request():
+    """A stop that is already requested ends the run after its first
+    dispatch; without a checkpoint manager nothing is saved."""
+    class Stop:
+        requested = True
+
+    _, state, metrics = trainer.train(_cfg(), _dataset(), num_steps=8,
+                                      stop=Stop(), device="cpu")
+    assert int(state.step) == 2 and "loss" in metrics
 
 
 def test_train_refuses_streaming_and_sharded_corpus():
@@ -283,7 +292,8 @@ def test_train_subcommand_runs_from_a_saved_cache(tmp_path, capsys):
     rc = main(["train", "--data", cache, "--steps", "4", "--batch-size", "1",
                "--log-every", "2", "--eval-every", "4", "--eval-batches",
                "1", "--holdout-frac", "0.34", "--ema-decay", "0.9",
-               "--device", "cpu", "--log-dir", str(log_dir)])
+               "--device", "cpu", "--log-dir", str(log_dir),
+               "--ckpt-dir", str(tmp_path / "ckpt")])
     assert rc == 0
     assert "final metrics" in capsys.readouterr().out
     lines = [json.loads(ln) for ln in
@@ -291,17 +301,18 @@ def test_train_subcommand_runs_from_a_saved_cache(tmp_path, capsys):
     assert [ln["step"] for ln in lines] == [2, 4, 4]
     assert np.isfinite(lines[0]["loss"]) and lines[0]["nonfinite"] == 0.0
     assert "eval_loss" in lines[2] and "eval_ema_f1" in lines[2]
+    # the final save, and the best checkpoint of the one eval
+    assert os.listdir(tmp_path / "ckpt" / "4") and os.listdir(
+        tmp_path / "ckpt" / "best" / "4")
+    assert json.loads((tmp_path / "ckpt" / "best" / "best_metric.json")
+                      .read_text())["step"] == 4
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--resume"], "--resume (ROADMAP.md item A8)"),
-    (["--ckpt-dir", "x"], "--ckpt-dir (ROADMAP.md item A8)"),
-    (["--ckpt-every", "10"], "--ckpt-every (ROADMAP.md item A8)"),
     (["--midi-glob", "*.mid"], "--midi-glob (ROADMAP.md item A7)"),
     (["--stream"], "--stream (ROADMAP.md item A13)"),
     (["--host-sharded"], "--host-sharded (ROADMAP.md item A13)"),
     (["--corpus-layout", "sharded"], "--corpus-layout sharded"),
-    (["--enc-channels", "4,8"], "--enc-channels (ROADMAP.md item A12)"),
 ])
 def test_train_subcommand_refuses_unported_flags(flags, needle, capsys):
     rc = main(["train", "--data", "nowhere.npz", "--device", "cpu", *flags])

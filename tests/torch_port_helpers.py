@@ -8,6 +8,8 @@ import functools
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from musicvae_tpu import config as jcfg
 from musicvae_tpu.checkpoints.torch_convert import torch_state_dict_to_flax
@@ -64,3 +66,59 @@ def jitted(jmodel, method: str):
 
 def bars(rng: np.random.Generator, shape, density: float = 0.05):
     return (rng.random(shape) < density).astype(np.float32)
+
+
+TRAIN_KW = dict(batch_size=2, log_every=2, ckpt_every=0, eval_every=0,
+                beta_warmup_steps=4, seed=3)
+
+
+def train_cfg(**train_kw):
+    """The port's tiny c2 config with a short-run TrainSpec
+    (``TRAIN_KW``, then ``train_kw``)."""
+    _, tc = tiny_pair()
+    return tc.replace(train=dataclasses.replace(
+        tc.train, **{**TRAIN_KW, **train_kw}))
+
+
+def bar_dataset(seed=0, pieces=6, bars_per_piece=8, num_bars=4):
+    """A port PianoRollDataset of Bernoulli(0.05) bars whose windows never
+    cross a piece."""
+    from musicvae_tpu_torch.data.dataset import PianoRollDataset
+
+    rng = np.random.default_rng(seed)
+    bars = (rng.random((pieces * bars_per_piece, 96, 128)) < 0.05
+            ).astype(np.uint8)
+    per = bars_per_piece - num_bars + 1
+    starts = (np.arange(pieces)[:, None] * bars_per_piece
+              + np.arange(per)[None, :]).reshape(-1)
+    return PianoRollDataset(
+        bars, starts, num_bars, rng.integers(0, 24, starts.shape[0]),
+        rng.integers(0, 24, starts.shape[0]),
+        np.repeat(np.arange(pieces), per), grid=(24, 4, 0))
+
+
+def state_tensors(state) -> list:
+    """Every tensor of a port TrainState, the generator's state included,
+    in a fixed order."""
+    sd = state.state_dict()
+    return ([sd["step"], sd["opt"]["count"], sd["rng"]]
+            + [t for k in ("params", "ema") for t in (sd[k] or {}).values()]
+            + [t for k in ("mu", "nu") for t in sd["opt"][k].values()])
+
+
+def same_state(a, b) -> bool:
+    ta, tb = state_tensors(a), state_tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y)
+                                      for x, y in zip(ta, tb))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The importing module's torch work on one thread: the suite runs as
+    several workers on a few cores, where torch's default of a thread a
+    core oversubscribes them many times over; unloaded, one thread costs
+    these tiny shapes nothing. The previous count comes back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
