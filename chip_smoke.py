@@ -34,7 +34,19 @@ check does not hold:
    bit for bit; a truncated latest step falls back to the one before and
    is quarantined; the CLI trains, resumes, describes, evaluates (the
    BCE kernel) and serves (the first-conv kernel) from the checkpoint;
-   save and restore times.
+   save and restore times;
+9. corpus: MIDI in → train → MIDI out through the CLI: 64 synthetic
+   pieces of 32 bars written as .mid files with a label sidecar; the
+   native parser must have built, and it and the pure-Python codec must
+   give the same bars; ``preprocess``; ``train --midi-glob
+   --use-pallas-conv1`` for 10 steps at batch 64 (K4 once a step, K1b
+   twice, K2 once an eval batch; the loss must fall); ``generate
+   --seed-midi --encode --interpolate --interp-midi-b`` twice in each of
+   Bernoulli and threshold mode (K1 for both encodes and every bar; runs
+   with one seed equal bit for bit; the MIDI files tensorize back to
+   rolls.npy), and a Bernoulli sweep with the draws handed in, held
+   against the CPU; ``reconstruct`` two files; ``eval-gen`` and ``eval
+   --midi-glob`` (K2). Host times of each command.
 
 The last lines are a "details:" JSON line with every check and timing,
 the card's name and power limit, the kernels JSON object, and
@@ -1813,6 +1825,301 @@ def ckpt_phase(seed: int, dev: torch.device, card: str):
     return runs, out
 
 
+CORPUS_PIECES = 64
+CORPUS_BARS = 32
+CORPUS_STEPS = 10
+CORPUS_EVAL_EVERY = 5
+GEN_BARS = 16
+GEN_SAMPLES = 4
+U_MARGIN = 1e-3    # |u − σ(l/T)| within which a Bernoulli cell may flip
+#                    between the card and the CPU: the f32 logits agree
+#                    to 1e-3 (reference phase), σ' ≤ 1/4
+
+
+def _timing(err: str) -> dict:
+    """The ``timing:`` line that ``generate`` prints on stderr."""
+    line = [ln for ln in err.splitlines() if ln.startswith("timing: ")]
+    check(len(line) == 1, f"generate printed no timing line: {err[-2000:]}")
+    return {k: float(v) for k, v in
+            (kv.split("=") for kv in line[0].split()[1:])}
+
+
+def _timed_cli(argv):
+    """``_cli`` with the host time of the whole command, in ms, and the
+    kernel launches it made."""
+    from musicvae_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc, o, e = _cli(argv)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(rc == 0, f"CLI {argv[0]}: rc {rc}: {e[-2000:]}")
+    return o, e, ms, dict(_kernels.LAUNCHES)
+
+
+def _bernoulli_card_vs_cpu(ck: str, dev: torch.device, seed: int,
+                           seed_bar: np.ndarray) -> dict:
+    """The trained checkpoint's weights in f32 on the card and on the
+    CPU: a Bernoulli sweep of ``make_generate_fn`` on the card from a seed
+    bar with both latent endpoints pinned and the uniforms handed in,
+    against ``generate`` on the CPU with the same draws. Bar by bar while
+    the bars agree, cells may differ only where the uniform lies within
+    U_MARGIN of the CPU's probability."""
+    from musicvae_tpu_torch.cli import restore_checkpoint
+    from musicvae_tpu_torch.config import GenSpec
+    from musicvae_tpu_torch.generate import sampler
+    from musicvae_tpu_torch.models.vae import build_model
+
+    cfg, state = restore_checkpoint(ck, dev)
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dtype="float32"),
+        gen=GenSpec(num_bars=GEN_BARS, num_samples=GEN_SAMPLES,
+                    interpolate=True, sample_mode="bernoulli",
+                    sample_temperature=0.9))
+    weights = state.model.state_dict()
+    on_card, cpu = (build_model(cfg, device=d) for d in (dev, "cpu"))
+    for m in (on_card, cpu):
+        m.load_state_dict(weights, strict=True)
+    g = torch.Generator().manual_seed(seed)
+    b, z = GEN_SAMPLES, cfg.model.z_dim
+    noise = torch.randn((2, b, z), generator=g)
+    z0, z1 = torch.randn((2, b, z), generator=g)
+    u = torch.rand((b, GEN_BARS, 96, 128), generator=g)
+    sb = torch.from_numpy(seed_bar)[None].repeat(b, 1, 1)
+    got = sampler.make_generate_fn(cfg, on_card)(
+        None, seed_bar=sb.to(dev), z0=z0.to(dev), z1=z1.to(dev),
+        noise=noise.to(dev), uniforms=u.to(dev)).cpu()
+    z_bars, reset = sampler.latent_path(cfg, b, GEN_BARS, True,
+                                        noise=noise, z0=z0, z1=z1)
+    with torch.inference_mode():
+        logits, want = cpu.generate(z_bars, reset, sb, uniforms=u,
+                                    sample_temperature=0.9)
+    p = torch.sigmoid(logits / 0.9)
+    compared = flips = near = 0
+    for k in range(GEN_BARS):
+        diff = got[:, k] != want[:, k]
+        may = (u[:, k] - p[:, k]).abs() < U_MARGIN
+        check(not (diff & ~may).any(),
+              f"Bernoulli card vs CPU: bar {k} differs outside the margin")
+        compared += 1
+        near += int(may.sum())
+        flips += int(diff.sum())
+        if flips:
+            break
+    out = {"bars_compared": compared, "flips": flips,
+           "cells_within_margin": near, "margin": U_MARGIN,
+           "density": float(want.float().mean())}
+    log(f"corpus (c): Bernoulli sweep, f32, card vs CPU, same draws: {out}")
+    return out
+
+
+def corpus_phase(seed: int, dev: torch.device, card: str):
+    """MIDI in → train → MIDI out at full width on the card, through the
+    CLI (see the module docstring's phase 9)."""
+    import shutil
+    import tempfile
+
+    from musicvae_tpu_torch import native
+    from musicvae_tpu_torch.config import MidiSpec
+    from musicvae_tpu_torch.data.dataset import PianoRollDataset
+    from musicvae_tpu_torch.data.synthetic import synth_corpus
+    from musicvae_tpu_torch.midi import tensorize
+    from musicvae_tpu_torch.ops import _kernels
+
+    _kernels.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="corpus_smoke_",
+                            dir=_kernels.BUILD_ROOT.parent)
+    out, runs = {"card": card}, {}
+    t_phase = time.perf_counter()
+    try:
+        # (a) ingest: the native parser and the pure-Python codec agree
+        pieces = synth_corpus(CORPUS_PIECES, CORPUS_BARS, seed=seed)
+        midi_dir = os.path.join(root, "midi")
+        os.makedirs(midi_dir)
+        sidecar = {}
+        for i, (data, chord, key) in enumerate(pieces):
+            with open(os.path.join(midi_dir, f"p{i:02d}.mid"), "wb") as f:
+                f.write(data)
+            if i % 2 == 0:
+                sidecar[f"p{i:02d}.mid"] = {"chord": chord, "key": key}
+        labels = os.path.join(root, "labels.json")
+        with open(labels, "w") as f:
+            json.dump(sidecar, f)
+        midi_glob = os.path.join(midi_dir, "p*.mid")
+        check(native.available(), "the native SMF library did not build "
+                                  "(g++) or load")
+        datas = [p[0] for p in pieces]
+        spec = MidiSpec()
+        paths = {}
+        for name, use_native in (("native", True), ("python", False)):
+            t0 = time.perf_counter()
+            bars = tensorize.corpus_to_bars(datas, spec, as_uint8=True,
+                                            use_native=use_native)
+            ms = (time.perf_counter() - t0) * 1e3
+            n_bars = sum(b.shape[0] for b in bars)
+            paths[name] = (bars, {"ms": ms, "bars": n_bars,
+                                  "bars_per_s": n_bars / ms * 1e3})
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(paths["native"][0], paths["python"][0]))
+        out["tensorize"] = {k: v[1] for k, v in paths.items()}
+        out["tensorize"]["same_bars"] = same
+        out["tensorize"]["native_library"] = str(native.build())
+        log(f"corpus (a): {CORPUS_PIECES} pieces x {CORPUS_BARS} bars, "
+            f"host tensorize: {out['tensorize']}")
+        check(same and paths["native"][1]["bars"]
+              == CORPUS_PIECES * CORPUS_BARS,
+              "the native and pure-Python tensorizers disagree")
+        cache = os.path.join(root, "cache.npz")
+        o, e, ms, _ = _timed_cli(["preprocess", "--midi-glob", midi_glob,
+                                  "--labels", labels, "--out", cache])
+        ds = PianoRollDataset.load_npy(cache)
+        windows = CORPUS_PIECES * (CORPUS_BARS - 3)
+        out["preprocess"] = {"ms": ms, "windows": len(ds)}
+        log(f"corpus (a): CLI preprocess {ms:.1f} ms (host clock): {o.strip()}")
+        check(len(ds) == windows and ds.grid == (24, 4),
+              f"preprocess wrote {len(ds)} windows, grid {ds.grid}")
+        check(np.array_equal(ds.bars, np.concatenate(paths["native"][0])),
+              "the cache's bars differ from the tensorizer's")
+
+        # (b) train from the MIDI files with the first-conv kernels
+        ck = os.path.join(root, "ck")
+        logs = os.path.join(root, "logs")
+        o, e, ms, launches = _timed_cli([
+            "train", "--midi-glob", midi_glob, "--labels", labels,
+            "--steps", CORPUS_STEPS, "--eval-every", CORPUS_EVAL_EVERY,
+            "--log-every", CORPUS_EVAL_EVERY, "--batch-size", 64,
+            "--use-pallas-conv1", "--ckpt-dir", ck, "--log-dir", logs])
+        runs["corpus_train"] = launches
+        n_eval = int(re.search(r"holdout: (\d+) eval windows", e).group(1))
+        evals = CORPUS_STEPS // CORPUS_EVAL_EVERY
+        eval_batches = evals * min(4, max(1, n_eval // 64))
+        logged = [json.loads(ln) for ln in
+                  open(os.path.join(logs, "metrics.jsonl"))]
+        losses = [ln["loss"] for ln in logged if "loss" in ln]
+        out["train"] = {"ms": ms, "launches": launches, "losses": losses,
+                        "eval_windows": n_eval,
+                        "eval_loss": [ln["eval_loss"] for ln in logged
+                                      if "eval_loss" in ln]}
+        log(f"corpus (b): CLI train --midi-glob, {CORPUS_STEPS} steps at "
+            f"batch 64, eval every {CORPUS_EVAL_EVERY}: {out['train']}")
+        check(launches["masked_bce_sum_dual"] == CORPUS_STEPS
+              and launches["first_conv_s2_bwd"] == 2 * CORPUS_STEPS
+              and launches["masked_bce_sum"] == eval_batches
+              and launches["first_conv_s2"] == 2 * (CORPUS_STEPS
+                                                    + eval_batches),
+              f"train launches {launches} (K4 once a step, K1b twice, K2 "
+              f"once an eval batch, {eval_batches} eval batches)")
+        check(len(losses) == CORPUS_STEPS // CORPUS_EVAL_EVERY
+              and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"the loss did not fall: {losses}")
+
+        # (c) generate: continue A, morph to B
+        a, b = (os.path.join(midi_dir, f"p{i:02d}.mid") for i in (0, 1))
+        gen_out = {}
+        rolls = {}
+        for run, mode in (("bernoulli_1", "bernoulli"),
+                          ("threshold_1", "threshold"),
+                          ("threshold_2", "threshold"),
+                          ("bernoulli_2", "bernoulli")):
+            gdir = os.path.join(root, run)
+            o, e, ms, launches = _timed_cli([
+                "generate", "--ckpt-dir", ck, "--seed-midi", a, "--encode",
+                "--interpolate", "--interp-midi-b", b, "--samples",
+                GEN_SAMPLES, "--bars", GEN_BARS, "--sample-mode", mode,
+                "--seed", seed, "--out-dir", gdir])
+            runs[f"corpus_generate_{run}"] = launches
+            r = np.load(os.path.join(gdir, "rolls.npy"))
+            rolls[run] = r
+            check(r.shape == (GEN_SAMPLES, GEN_BARS, 96, 128)
+                  and r.dtype == np.uint8, f"rolls {r.shape} {r.dtype}")
+            # two encodes (A, B) and one prev-bar feature a bar
+            check(launches["first_conv_s2"] == 2 + GEN_BARS,
+                  f"generate ({run}): K1 launches {launches}")
+            for i in range(GEN_SAMPLES):
+                with open(os.path.join(gdir, f"sample_{i:04d}.mid"),
+                          "rb") as f:
+                    back = tensorize.corpus_to_bars(
+                        [f.read()], spec, max_events=1 << 22,
+                        as_uint8=True)[0]
+                n = back.shape[0]
+                check(n <= GEN_BARS and np.array_equal(back, r[i, :n])
+                      and not r[i, n:].any(),
+                      f"generate ({run}): sample {i}'s MIDI does not "
+                      f"tensorize back to rolls.npy")
+            gen_out[run] = {"ms": ms, **_timing(e),
+                            "density": float(r.mean()),
+                            "launches": launches}
+        same = {mode: np.array_equal(rolls[f"{mode}_1"], rolls[f"{mode}_2"])
+                for mode in ("threshold", "bernoulli")}
+        gen_out["repeat_same_bits"] = same
+        # the export of 4 x 16 bars of the corpus itself: the density a
+        # trained model's samples approach
+        real = np.concatenate(paths["native"][0][:GEN_SAMPLES]).reshape(
+            GEN_SAMPLES, -1, 96, 128)[:, :GEN_BARS]
+        t0 = time.perf_counter()
+        for i in range(GEN_SAMPLES):
+            tensorize.bars_to_midi_bytes(real[i], spec)
+        gen_out["export_ms_at_corpus_density"] = {
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "density": float(real.mean())}
+        log(f"corpus (c): CLI generate --seed-midi --encode --interpolate "
+            f"--interp-midi-b, {GEN_SAMPLES} x {GEN_BARS} bars: {gen_out}")
+        check(all(same.values()), f"two runs with one seed differ: {same}")
+        with open(a, "rb") as f:
+            seed_bar = tensorize.corpus_to_bars([f.read()], spec,
+                                                as_uint8=True)[0][-1]
+        gen_out["card_vs_cpu"] = _bernoulli_card_vs_cpu(ck, dev, seed,
+                                                        seed_bar)
+        out["generate"] = gen_out
+
+        # (d) reconstruct two files
+        o, e, ms, launches = _timed_cli([
+            "reconstruct", "--ckpt-dir", ck, "--midi-glob",
+            os.path.join(midi_dir, "p0[01].mid"), "--out-dir",
+            os.path.join(root, "recon")])
+        runs["corpus_reconstruct"] = launches
+        windows = 2 * CORPUS_BARS // 4
+        f1 = [float(ln.split("f1=")[1]) for ln in o.splitlines()]
+        out["reconstruct"] = {"ms": ms, "ms_per_window": ms / windows,
+                              "windows": windows, "f1": f1,
+                              "lines": o.splitlines(), "launches": launches}
+        log(f"corpus (d): CLI reconstruct: {out['reconstruct']}")
+        check(len(f1) == 2 and launches["first_conv_s2"] == 2 * windows,
+              f"reconstruct: {o} {launches}")
+
+        # (e) score the generations and the corpus
+        o, e, ms, launches = _timed_cli([
+            "eval-gen", "--ckpt-dir", ck, "--midi-glob", midi_glob,
+            "--samples", 64, "--bars", GEN_BARS])
+        runs["corpus_eval_gen"] = launches
+        res = json.loads(o)
+        out["eval_gen"] = {"ms": ms, "compare": res["compare"],
+                           "launches": launches}
+        log(f"corpus (e): CLI eval-gen {ms:.1f} ms: {out['eval_gen']}")
+        check(sorted(res) == ["bars_per_sample", "compare", "gen", "ref",
+                              "samples"]
+              and launches["first_conv_s2"] == GEN_BARS,
+              f"eval-gen: {sorted(res)}, {launches}")
+        o, e, ms, launches = _timed_cli([
+            "eval", "--ckpt-dir", ck, "--midi-glob", midi_glob,
+            "--batches", 2])
+        runs["corpus_eval"] = launches
+        scores = dict(kv.split("=") for kv in o.split())
+        out["eval"] = {"ms": ms, "scores": scores, "launches": launches}
+        log(f"corpus (e): CLI eval --midi-glob: {out['eval']}")
+        check(launches["masked_bce_sum"] == 2
+              and sorted(scores) == ["f1", "kl", "loss", "precision",
+                                     "recall", "recon"]
+              and all(np.isfinite(float(v)) for v in scores.values()),
+              f"eval --midi-glob: {scores}, {launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"corpus phase: {out['seconds']:.1f} s")
+    return runs, out
+
+
 def profile_phase(seed: int, dev: torch.device):
     """Development aid, not part of the default run: where one train
     step's time goes. Which parts of a step the launch queue can hold
@@ -1899,7 +2206,7 @@ def profile_phase(seed: int, dev: torch.device):
 
 
 PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train",
-          "ckpt")
+          "ckpt", "corpus")
 
 
 def main() -> int:
@@ -1953,6 +2260,9 @@ def main() -> int:
     if "ckpt" in only:
         ckpt_runs, details["ckpt"] = ckpt_phase(args.seed, dev, card)
         runs.update(ckpt_runs)
+    if "corpus" in only:
+        corpus_runs, details["corpus"] = corpus_phase(args.seed, dev, card)
+        runs.update(corpus_runs)
     if "profile" in only:
         details["profile"] = profile_phase(args.seed, dev)
 

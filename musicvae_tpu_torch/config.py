@@ -301,6 +301,59 @@ _CONFIGS = {c.name: c for c in
              C2_MXU_WIDE)}
 
 
+# native grid resolution: 24 steps/quarter = 96 steps/whole-note — the
+# 4/4 default bar, and the resolution bar-adapting meters keep
+_NATIVE_SPQ = 24
+
+
+def meter_grid(numerator: int, denominator: int,
+               steps_per_bar: int = 96) -> dict:
+    """MidiSpec overrides realizing the meter ``numerator/denominator``
+    (keys: steps_per_quarter, quarters_per_bar, bar_steps,
+    meter_numerator, meter_denominator). SEMANTICS.md §1.
+
+    Shape-preserving when possible: a meter spanning a whole number of
+    quarters that divides ``steps_per_bar`` keeps the bar TENSOR at
+    ``steps_per_bar`` steps and adapts the grid RESOLUTION instead —
+    3/4 → three 32-step quarters per 96-step bar.
+
+    Otherwise the BAR LENGTH adapts at the native 24-step/quarter
+    resolution: 5/4 → 120-step bars (24 × 5 quarters), 7/8 → 84-step bars
+    (bar_steps override; 3.5 quarters is not a whole number, so
+    quarters_per_bar is 0 and exports/validation go through the meter
+    fields). Raises ValueError only for meters the integer grid cannot
+    represent (denominator not a power of two, or bar length not a whole
+    number of steps)."""
+    if numerator <= 0 or denominator <= 0 or \
+            denominator & (denominator - 1):
+        raise ValueError(f"bad meter {numerator}/{denominator} "
+                         "(denominator must be a power of two)")
+    if (4 * numerator) % denominator == 0:
+        qpb = 4 * numerator // denominator
+        if steps_per_bar % qpb == 0:
+            # shape-preserving: resolution adapts, bar stays
+            return dict(steps_per_quarter=steps_per_bar // qpb,
+                        quarters_per_bar=qpb, bar_steps=0,
+                        meter_numerator=numerator,
+                        meter_denominator=denominator)
+        # whole quarters that don't divide the default bar (5/4, 7/4):
+        # bar adapts at native resolution — 5/4 → 24 × 5 = 120 steps
+        return dict(steps_per_quarter=_NATIVE_SPQ, quarters_per_bar=qpb,
+                    bar_steps=0, meter_numerator=numerator,
+                    meter_denominator=denominator)
+    # fractional quarters (7/8 = 3.5): bar = 4·spq·num/den grid steps
+    spb4 = 4 * _NATIVE_SPQ * numerator
+    if spb4 % denominator:
+        raise ValueError(
+            f"meter {numerator}/{denominator} is "
+            f"{spb4 / denominator:g} grid steps per bar at "
+            f"{_NATIVE_SPQ} steps/quarter — not a whole number; "
+            f"unsupported")
+    return dict(steps_per_quarter=_NATIVE_SPQ, quarters_per_bar=0,
+                bar_steps=spb4 // denominator,
+                meter_numerator=numerator, meter_denominator=denominator)
+
+
 def get_config(name: str) -> Config:
     """Look up a registered config by name."""
     try:

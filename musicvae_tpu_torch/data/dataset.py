@@ -7,16 +7,16 @@ The trainer uploads the bar array to the card and gathers whole batches of
 windows there (train/trainer.py ``make_train_step_indexed``); ``batch()``
 assembles small host batches for eval and tests.
 
-The ``.npz`` layout of ``save_npy`` / ``load_npy`` is the JAX package's, so a
-cache written by ``python -m musicvae_tpu preprocess`` trains the port.
-``from_corpus`` and ``host_shard`` wait for the host tensorizer and for
-multi-process training.
+The ``.npz`` layout of ``save_npy`` / ``load_npy`` is the JAX package's, so
+a cache written by either package's ``preprocess`` trains the other.
+``from_corpus`` tensorizes a MIDI corpus on the host (midi/tensorize.py);
+``host_shard`` waits for multi-process training.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -58,13 +58,51 @@ class PianoRollDataset:
     def from_corpus(cls, pieces: Sequence[Tuple[bytes, int, int]],
                     spec: MidiSpec, num_bars: int,
                     infer_labels: bool = False) -> "PianoRollDataset":
-        """Tensorizing a MIDI corpus needs the host tensorizer, which the
-        port does not have yet."""
-        raise NotImplementedError(
-            "PianoRollDataset.from_corpus needs the host tensorizer, which "
-            "is not in the PyTorch port yet (ROADMAP.md item A7); build "
-            "the cache with `python -m musicvae_tpu preprocess` and "
-            "load_npy it")
+        """pieces: (smf_bytes, chord_class, key_class) triples. A None
+        chord/key means "unlabeled": inferred from the rolls when
+        ``infer_labels`` (key per piece via Krumhansl-Schmuckler, chord per
+        window via triad match — midi/labels.py), else 0."""
+        from musicvae_tpu_torch.midi import labels as labels_mod
+        from musicvae_tpu_torch.midi import tensorize
+
+        all_bars = tensorize.corpus_to_bars([p[0] for p in pieces], spec,
+                                            as_uint8=True)
+        starts: List[int] = []
+        chords: List[int] = []
+        keys: List[int] = []
+        piece_ids: List[int] = []
+        offset = 0
+        for pid, (bars, (_, chord, key)) in enumerate(zip(all_bars, pieces)):
+            # per-bar histograms once per piece; overlapping windows then
+            # score from a [num_bars,12] sum instead of re-histogramming
+            # the full [num_bars*T,128] roll per window
+            hists = (labels_mod.bar_pc_histograms(bars)
+                     if infer_labels and (key is None or chord is None)
+                     else None)
+            if key is None:
+                key = (labels_mod.key_from_hist(hists.sum(0))
+                       if infer_labels else 0)
+            n = bars.shape[0]
+            for s in range(0, n - num_bars + 1):
+                if chord is None:
+                    c = (labels_mod.chord_from_hist(
+                            hists[s:s + num_bars].sum(0), fallback=key)
+                         if infer_labels else 0)
+                else:
+                    c = chord
+                starts.append(offset + s)
+                chords.append(c)
+                keys.append(key)
+                piece_ids.append(pid)
+            offset += n
+        if not starts:
+            raise ValueError("corpus produced no windows "
+                             f"(need pieces with >= {num_bars} bars)")
+        return cls(np.concatenate(all_bars, axis=0), np.asarray(starts),
+                   num_bars, np.asarray(chords), np.asarray(keys),
+                   np.asarray(piece_ids),
+                   grid=(spec.steps_per_quarter, spec.quarters_per_bar,
+                         spec.bar_steps))
 
     @classmethod
     def load_npy(cls, path: str) -> "PianoRollDataset":

@@ -1,14 +1,17 @@
-"""Bar-by-bar generation and latent paths (threshold mode).
+"""Bar-by-bar generation, latent paths, posterior encode and reconstruction.
 
-Counterpart of the JAX package's generate/sampler.py. Random draws come
-from an explicit ``torch.Generator`` or are handed in as ``noise``: the two
+Counterpart of the JAX package's generate/sampler.py (kind ``gru_seq``).
+Random draws come from an explicit ``torch.Generator`` on the model's
+device or are handed in (``noise``, ``uniforms``, ``eps``): the two
 frameworks' generators cannot be matched bit for bit, so the tests give
-both packages the same normals.
+both packages the same draws.
 
 Latent paths: one z ~ N(0, I)·temperature per phrase (phrase =
 ``model.num_bars`` bars), held within the phrase, with the GRU state reset
 at phrase starts; under ``interpolate`` z slerps from z_a to z_b across
-phrases.
+phrases. ``z0``/``z1`` pin the first phrase (the slerp start) and the
+slerp end, typically to encoded posterior samples of real music
+(``make_encode_fn``).
 """
 
 from __future__ import annotations
@@ -20,34 +23,48 @@ import torch
 
 from musicvae_tpu_torch.config import Config
 from musicvae_tpu_torch.midi import tensorize
-from musicvae_tpu_torch.models.latent import slerp
+from musicvae_tpu_torch.models.latent import reparameterize, slerp
 from musicvae_tpu_torch.models.vae import PianoRollVAE
+from musicvae_tpu_torch.ops.binarize import binarize_logits
 
 
 def latent_path(cfg: Config, batch: int, num_bars: int, interpolate: bool,
                 temperature: float = 1.0,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None
+                noise: Optional[torch.Tensor] = None,
+                z0: Optional[torch.Tensor] = None,
+                z1: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-bar latent path z [B, num_bars, z] and reset mask [B, num_bars].
 
     ``noise``: N(0,1) draws, [2, B, z] (z_a, z_b) under ``interpolate``,
     else [n_phrases, B, z]; drawn from ``generator``, on its device, when
-    None."""
+    None. ``z0`` [B, z] pins the first phrase's z (the slerp start under
+    ``interpolate``); later phrases still come from the prior. ``z1``
+    [B, z] pins the slerp END — with both endpoints encoded from real
+    pieces the sweep morphs from piece A to piece B; it needs
+    ``interpolate``."""
     z_dim = cfg.model.z_dim
     phrase = 1 if cfg.model.kind == "hier" else max(1, cfg.model.num_bars)
     n_phrases = -(-num_bars // phrase)
+    if z1 is not None and not interpolate:
+        raise ValueError("z1 pins the slerp endpoint and only makes sense "
+                         "with interpolate=True")
     if noise is None:
         shape = (2 if interpolate else n_phrases, batch, z_dim)
         noise = torch.randn(shape, generator=generator,
                             device=generator.device if generator else None)
     if interpolate:
+        z_a = z0 if z0 is not None else noise[0] * temperature
+        z_b = z1 if z1 is not None else noise[1] * temperature
         ts = (torch.linspace(0.0, 1.0, n_phrases, device=noise.device)
               if n_phrases > 1 else torch.tensor([0.5], device=noise.device))
-        z_phrases = slerp(noise[0] * temperature, noise[1] * temperature,
-                          ts[:, None, None])                # [n, B, z]
+        z_phrases = slerp(z_a, z_b, ts[:, None, None])      # [n, B, z]
     else:
         z_phrases = noise * temperature
+        if z0 is not None:
+            z_phrases = torch.cat([z0[None].to(z_phrases.dtype),
+                                   z_phrases[1:]])
     # each phrase's z repeated over its bars (expand, not
     # repeat_interleave, which may wait on the card for its output size)
     z_bars = z_phrases[:, None].expand(-1, phrase, -1, -1).reshape(
@@ -60,25 +77,83 @@ def latent_path(cfg: Config, batch: int, num_bars: int, interpolate: bool,
 
 
 def make_generate_fn(cfg: Config, model: PianoRollVAE):
-    """Sweep function: (generator, seed_bar=None) → bars [num_samples,
-    num_bars, T, P] uint8 on the model's device, for the shape and latent
-    settings in ``cfg.gen``. The generator must live on that device."""
+    """Sweep function for the shape, latent and sampling settings in
+    ``cfg.gen``: (generator, seed_bar=None, z0=None, z1=None, noise=None,
+    uniforms=None) → bars [num_samples, num_bars, T, P] uint8 on the
+    model's device.
+
+    ``seed_bar`` [B,T,P] is the first prev-bar condition (a real bar);
+    ``z0``/``z1`` pin the latent path (``latent_path``). The generator,
+    on the model's device, draws the latent path's normals unless
+    ``noise`` is given and, in Bernoulli mode, each bar's uniforms unless
+    ``uniforms`` ([B,N,T,P]) is given."""
     g = cfg.gen
-    if g.sample_mode != "threshold":
-        raise NotImplementedError(
-            f"GenSpec.sample_mode={g.sample_mode!r}: the port generates in "
-            "threshold mode so far (see ROADMAP.md)")
+    if g.sample_mode not in ("threshold", "bernoulli"):
+        raise ValueError(f"unknown GenSpec.sample_mode {g.sample_mode!r}; "
+                         "expected 'threshold' or 'bernoulli'")
 
     @torch.inference_mode()
-    def sweep(generator: torch.Generator,
-              seed_bar: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def sweep(generator: Optional[torch.Generator],
+              seed_bar: Optional[torch.Tensor] = None,
+              z0: Optional[torch.Tensor] = None,
+              z1: Optional[torch.Tensor] = None,
+              noise: Optional[torch.Tensor] = None,
+              uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
         z_bars, reset = latent_path(cfg, g.num_samples, g.num_bars,
                                     g.interpolate, g.temperature,
-                                    generator=generator)
-        _, bars = model.generate(z_bars, reset, seed_bar)
+                                    generator=generator, noise=noise,
+                                    z0=z0, z1=z1)
+        kw = {}
+        if g.sample_mode == "bernoulli":
+            kw = {"uniforms": generator if uniforms is None else uniforms,
+                  "sample_temperature": g.sample_temperature}
+        _, bars = model.generate(z_bars, reset, seed_bar, **kw)
         return bars
 
     return sweep
+
+
+def _eps(x: torch.Tensor, cfg: Config,
+         generator: Optional[torch.Generator],
+         eps: Optional[torch.Tensor]) -> torch.Tensor:
+    """The posterior noise [B, z]: ``eps``, else drawn from ``generator``
+    on x's device."""
+    if eps is not None:
+        return eps
+    return torch.randn((x.shape[0], cfg.model.z_dim), generator=generator,
+                       device=x.device)
+
+
+def make_encode_fn(cfg: Config, model: PianoRollVAE):
+    """Posterior encode for seeded continuation: (x [B, num_bars, T, P],
+    generator=None, eps=None) → {"z0": [B, z]}, one posterior sample
+    mu + eps·exp(logvar/2) per row, eps [B, z] ~ N(0, I) drawn from
+    ``generator`` unless given."""
+
+    @torch.inference_mode()
+    def encode(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> dict:
+        mu, logvar = model.encode(x)
+        return {"z0": reparameterize(mu, logvar,
+                                     _eps(x, cfg, generator, eps))}
+
+    return encode
+
+
+def reconstruct_fn(cfg: Config, model: PianoRollVAE):
+    """Reconstruction: (x [B, num_bars, T, P], generator=None, eps=None) →
+    encode → posterior sample → teacher-forced decode → binarize, as f32
+    {0,1} [B, num_bars, T, P] (the reference's eval-time reconstruct)."""
+
+    @torch.inference_mode()
+    def reconstruct(x: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        logits, _ = model(x, _eps(x, cfg, generator, eps))
+        return binarize_logits(logits, cfg.midi.binarize_threshold,
+                               model.pitch_mask)
+
+    return reconstruct
 
 
 def bars_to_midi(bars, cfg: Config) -> bytes:

@@ -16,7 +16,7 @@ core are later slices: they raise ``NotImplementedError``.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -26,7 +26,8 @@ from musicvae_tpu_torch.config import Config, MidiSpec, ModelSpec
 from musicvae_tpu_torch.midi.tensorize import pitch_mask
 from musicvae_tpu_torch.models import layers
 from musicvae_tpu_torch.models.latent import reparameterize
-from musicvae_tpu_torch.ops.binarize import binarize_logits
+from musicvae_tpu_torch.ops.binarize import (binarize_logits,
+                                             sample_bernoulli_logits)
 
 Latents = List[Tuple[torch.Tensor, torch.Tensor]]   # [(mu, logvar), ...]
 
@@ -96,10 +97,16 @@ class BarDecoder(nn.Module):
         return self.head(out).reshape(b, n, t, p)
 
     def step(self, h: torch.Tensor, prev_bar: torch.Tensor,
-             z: torch.Tensor, reset: torch.Tensor):
+             z: torch.Tensor, reset: torch.Tensor,
+             u: Optional[torch.Tensor] = None,
+             sample_temperature: float = 1.0):
         """One closed-loop bar. h [B,H], prev_bar [B,T,P] uint8, z [B,z],
         reset [B] (1 where the GRU state re-initializes). Returns (h,
         logits [B,T,P], bar [B,T,P] uint8).
+
+        The bar is the threshold binarization of the logits, or, when
+        ``u`` (U[0,1) draws [B,T,P]) is given, their Bernoulli sample at
+        ``sample_temperature`` (GenSpec.sample_mode "bernoulli").
 
         At a reset bar the GRU restarts from tanh(h_init(z)) while the
         previous bar keeps conditioning across the phrase seam, as in the
@@ -112,8 +119,12 @@ class BarDecoder(nn.Module):
         h = torch.where(reset[:, None] > 0, h0, h.to(dt))
         h = self.dec_gru(torch.cat(parts, dim=-1), h)
         logits = self.head(h)
-        bar = binarize_logits(logits, self.midi.binarize_threshold,
-                              self.pitch_mask, dtype=torch.uint8)
+        if u is None:
+            bar = binarize_logits(logits, self.midi.binarize_threshold,
+                                  self.pitch_mask, dtype=torch.uint8)
+        else:
+            bar = sample_bernoulli_logits(u, logits, sample_temperature,
+                                          self.pitch_mask, dtype=torch.uint8)
         return h, logits, bar
 
 
@@ -166,11 +177,19 @@ class PianoRollVAE(BarDecoder):
         return self.teacher(z_bars, x), [(mu, logvar)]
 
     def generate(self, z_bars: torch.Tensor, reset: torch.Tensor,
-                 seed_bar: Optional[torch.Tensor] = None):
+                 seed_bar: Optional[torch.Tensor] = None,
+                 uniforms: Union[torch.Tensor, torch.Generator, None] = None,
+                 sample_temperature: float = 1.0):
         """Closed-loop generation: z_bars [B,N,z] per-bar latent path, reset
         [B,N] (1.0 at phrase starts), seed_bar [B,T,P] (the first prev-bar
         condition, zeros when None) → (logits [B,N,T,P], bars [B,N,T,P]
-        uint8)."""
+        uint8).
+
+        Bars are threshold-binarized unless ``uniforms`` is given: then
+        each bar is a Bernoulli sample at ``sample_temperature`` from the
+        U[0,1) draws ``uniforms[:, k]`` ([B,N,T,P]), or from draws of
+        ``uniforms`` itself, a generator on the model's device, made bar
+        by bar."""
         b, n = z_bars.shape[:2]
         t, p = self.midi.steps_per_bar, self.midi.num_pitches
         prev = (seed_bar.to(torch.uint8) if seed_bar is not None else
@@ -180,7 +199,13 @@ class PianoRollVAE(BarDecoder):
                         device=z_bars.device)
         all_logits, bars = [], []
         for k in range(n):
-            h, logits, prev = self.step(h, prev, z_bars[:, k], reset[:, k])
+            if isinstance(uniforms, torch.Generator):
+                u = torch.rand((b, t, p), generator=uniforms,
+                               device=uniforms.device)
+            else:
+                u = None if uniforms is None else uniforms[:, k]
+            h, logits, prev = self.step(h, prev, z_bars[:, k], reset[:, k],
+                                        u, sample_temperature)
             all_logits.append(logits)
             bars.append(prev)
         return torch.stack(all_logits, dim=1), torch.stack(bars, dim=1)

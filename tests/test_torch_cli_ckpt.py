@@ -240,7 +240,6 @@ def test_eval_weights_means_by_real_windows(ckpt, tmp_path, capsys, batches):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--midi-glob", "*.mid"], "--midi-glob (ROADMAP.md item A7)"),
     (["--ema"], jax_cli._EMA_ERROR),
     (["--ckpt-dir", "nowhere"], "no checkpoint in nowhere"),
 ])

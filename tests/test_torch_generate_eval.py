@@ -211,7 +211,7 @@ def test_serve_errors_in_band(req, match):
 
 @pytest.mark.parametrize("argv", [
     ["--port", "0"], ["--coalesce", "4"], ["--reload-every", "5"],
-    ["--pipeline"], ["--sample-mode", "bernoulli"],
+    ["--pipeline"],
 ])
 def test_serve_later_flags_refused(argv, capsys):
     assert main(["serve", "--device", "cpu", *argv]) == 2

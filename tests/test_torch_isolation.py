@@ -29,7 +29,27 @@ print(" ".join(names), "|", ",".join(bad))
 
 _NEW_MODULES = ("train.trainer", "data.dataset", "utils.logging",
                 "ops.augment", "ops.fused_elbo", "ops.conv1",
-                "checkpoints.io", "train.preemption")
+                "checkpoints.io", "train.preemption", "native",
+                "midi.labels", "data.synthetic", "ops.pack",
+                "utils.genmetrics")
+
+# every module of the port imported with the compiler and the loader
+# disabled (after torch, which loads its own libraries): an import that
+# built or loaded a native library would raise
+_IMPORT_BUILDS_NOTHING = """
+import ctypes, importlib, pkgutil, subprocess
+import numpy, torch
+def refuse(*a, **k):
+    raise AssertionError(f"called at import: {a[:1]}")
+subprocess.run = subprocess.Popen = ctypes.CDLL = refuse
+import musicvae_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from musicvae_tpu_torch import native
+from musicvae_tpu_torch.ops import _kernels
+print(native._lib is None and not native._build_failed
+      and _kernels._lib is None)
+"""
 
 _IMPORT_SMOKE = """
 import sys
@@ -51,6 +71,15 @@ def test_no_module_imports_jax_or_the_jax_package():
     for mod in _NEW_MODULES:        # imported with no nvcc and no GPU here
         assert f"musicvae_tpu_torch.{mod}" in names, mod
     assert bad.strip() == "", f"imports {bad}"
+
+
+def test_importing_builds_nothing():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_BUILDS_NOTHING],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True"
 
 
 def test_no_source_file_mentions_jax_imports():

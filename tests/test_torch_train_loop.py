@@ -16,7 +16,9 @@ import torch
 
 from musicvae_tpu.data.dataset import PianoRollDataset as JaxDataset
 from musicvae_tpu_torch.cli import main
+from musicvae_tpu_torch.config import MidiSpec
 from musicvae_tpu_torch.data.dataset import PianoRollDataset
+from musicvae_tpu_torch.data.synthetic import synth_corpus
 from musicvae_tpu_torch.train import trainer
 from musicvae_tpu_torch.utils.logging import MetricsLogger
 from torch_port_helpers import tiny_pair
@@ -260,8 +262,11 @@ def test_dataset_cache_is_the_jax_packages(tmp_path):
 
 def test_dataset_refuses_what_waits_for_later_items(tmp_path):
     ds = _dataset()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A7"):
-        PianoRollDataset.from_corpus([], None, 4)
+    midi_ds = PianoRollDataset.from_corpus(synth_corpus(2, 5, seed=1),
+                                           MidiSpec(), 4)
+    assert len(midi_ds) == 4 and midi_ds.grid == (24, 4)
+    with pytest.raises(ValueError, match="no windows"):
+        PianoRollDataset.from_corpus([], MidiSpec(), 4)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A13"):
         ds.host_shard(0, 2)
     with pytest.raises(ValueError, match="holdout_frac"):
@@ -309,7 +314,6 @@ def test_train_subcommand_runs_from_a_saved_cache(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--midi-glob", "*.mid"], "--midi-glob (ROADMAP.md item A7)"),
     (["--stream"], "--stream (ROADMAP.md item A13)"),
     (["--host-sharded"], "--host-sharded (ROADMAP.md item A13)"),
     (["--corpus-layout", "sharded"], "--corpus-layout sharded"),
@@ -334,5 +338,8 @@ def test_train_subcommand_checks_its_cache(tmp_path, capsys):
     ds.save_npy(other_grid)
     assert main(["train", "--data", other_grid, "--device", "cpu"]) == 2
     assert "quantized on grid" in capsys.readouterr().err
-    with pytest.raises(SystemExit):                 # --data is required
-        main(["train", "--device", "cpu"])
+    # without --data, --midi-glob is read, else a synthetic corpus made
+    assert main(["train", "--device", "cpu", "--midi-glob",
+                 str(tmp_path / "none" / "*.mid"), "--ckpt-dir",
+                 str(tmp_path / "ck")]) == 2
+    assert "no MIDI files match" in capsys.readouterr().err
