@@ -46,7 +46,19 @@ check does not hold:
    with one seed equal bit for bit; the MIDI files tensorize back to
    rolls.npy), and a Bernoulli sweep with the draws handed in, held
    against the CPU; ``reconstruct`` two files; ``eval-gen`` and ``eval
-   --midi-glob`` (K2). Host times of each command.
+   --midi-glob`` (K2). Host times of each command;
+10. serve_stack: the production serve stack, full-width c2_gru_4bar
+   (bf16, 4 x 16 bars) on a checkpoint whose config turns the first-conv
+   kernel on: serial serving and ``--coalesce 4`` answer 8 seeds, plain
+   and seeded, alike under the flip rule (a cell may flip only where
+   sigma lies within 1e-3 of the threshold; flips and margins printed),
+   K1 at M=4 for a lone request and M=16 for a coalesced one; ``serve
+   --port --coalesce 4 --reload-every 0.5 --max-requests`` in-process
+   with 4 concurrent clients, a newer step saved and pushed mid-run
+   (``stats`` shows it, later answers are the new weights'); req/s and
+   p50/p99 latency for stdin serial, ``--pipeline`` and ``--coalesce 4``
+   and TCP with 4 clients; ``convert --to-safetensors`` then
+   ``--from-safetensors`` serves the same bits.
 
 The last lines are a "details:" JSON line with every check and timing,
 the card's name and power limit, the kernels JSON object, and
@@ -360,15 +372,16 @@ def _case_log(tag: str, case: dict, details: dict, key: str) -> None:
 
 def _k1_checks(g, dev, wb, details):
     """The first conv's forward kernel against its plain version for every
-    C the wrapper takes, at the serve shape (M=4), a ragged M and the
-    train/eval shape (M=256), both x types and both output types.
+    C the wrapper takes, at the serve shape (M=4), a ragged M, the
+    coalesced serve shape (M=16) and the train/eval shape (M=256), both x
+    types and both output types.
     Tolerance 1e-5 (+1e-5 relative) for f32 output; 1e-2 for bf16 (one
     bf16 step where the two f32 GELUs round to either side)."""
     from musicvae_tpu_torch.ops import conv1
 
     err = {}
     for c, (w, b) in wb.items():
-        for m in (4, 5, 256):
+        for m in (4, 5, 16, 256):
             for x_dtype in (torch.uint8, torch.bfloat16):
                 x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.1)
                 x = x.to(x_dtype)
@@ -922,7 +935,7 @@ def kernel_checks(seed: int, dev: torch.device):
     w_lib = w.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous()
     b_lib = b.to(torch.bfloat16)
     k1_timed = {}
-    for m in (4, 256):
+    for m in (4, 16, 256):
         x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.05
              ).to(torch.uint8)
         x_nchw = x[:, None].to(torch.bfloat16)
@@ -960,8 +973,11 @@ def kernel_checks(seed: int, dev: torch.device):
                           "the same way",
         build={k: v for k, v in build.items() if "bwd" not in k},
         serve_shape={"name": "first_conv_s2 (serve, M=4, uint8 in, bf16 "
-                             "out)", **k1_timed[4]}))
+                             "out)", **k1_timed[4]},
+        coalesced_shape={"name": "first_conv_s2 (serve --coalesce 4, M=16, "
+                                 "uint8 in, bf16 out)", **k1_timed[16]}))
     log(f"timing first_conv_s2 (serve, M=4): {k1_timed[4]}")
+    log(f"timing first_conv_s2 (serve --coalesce 4, M=16): {k1_timed[16]}")
 
     # K1b at the train shape: uint8 bars, bf16 dy
     x = (torch.rand((256, 96, 128), generator=g, device=dev) < 0.05
@@ -2120,6 +2136,424 @@ def corpus_phase(seed: int, dev: torch.device, card: str):
     return runs, out
 
 
+STACK_W = 4            # --coalesce width
+STACK_SEEDS = 8        # seeds held serial against coalesced, plain and seeded
+STACK_CLIENTS = 4      # concurrent TCP clients
+STACK_PER_CLIENT = 4   # requests a client, in each timed mode
+FLIP_MARGIN = 1e-3     # |σ(l) − threshold| within which a cell may flip
+#                        between a sweep at batch B and one at W·B
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _connect(port: int, deadline_s: float = 300.0):
+    """A ServeClient on ``port``, retried until the server listens."""
+    from musicvae_tpu_torch.client import ServeClient
+
+    t_end = time.monotonic() + deadline_s
+    while True:
+        try:
+            return ServeClient(port=port, timeout=deadline_s)
+        except OSError:
+            check(time.monotonic() < t_end, f"no server on port {port}")
+            time.sleep(0.2)
+
+
+def _serial_reference(cfg, model, dev, seed: int, seed_bar):
+    """(bars, σ) of the serial sweep for ``seed``: the draws a lone
+    request makes, through the model's own ``generate``."""
+    from musicvae_tpu_torch.generate import sampler
+
+    g, b = cfg.gen, cfg.gen.num_samples
+    gen = sampler.seed_generator(seed, dev)
+    sb = None
+    if seed_bar is not None:
+        sb = torch.from_numpy(seed_bar).to(dev)[None].repeat(b, 1, 1)
+    with torch.inference_mode():
+        z, reset = sampler.latent_path(cfg, b, g.num_bars, g.interpolate,
+                                       g.temperature, generator=gen)
+        logits, bars = model.generate(z, reset, sb)
+    return bars.cpu().numpy(), torch.sigmoid(logits.float()).cpu().numpy()
+
+
+def _flip_rule(got, want, sig, threshold: float) -> dict:
+    """Bar by bar while the bars so far agree: a cell may differ only where
+    σ lies within FLIP_MARGIN of the threshold; after a flip the feedback
+    differs and the comparison stops."""
+    flips = compared = 0
+    worst = None
+    for k in range(want.shape[1]):
+        diff = got[:, k] != want[:, k]
+        compared += 1
+        if diff.any():
+            m = float(np.abs(sig[:, k][diff] - threshold).max())
+            check(m <= FLIP_MARGIN, f"bar {k}: a cell {m:.2e} from the "
+                                    f"threshold flipped")
+            flips, worst = int(diff.sum()), m
+            break
+    dist = np.abs(sig[:, :compared] - threshold)
+    # cells whose logit is exactly the threshold's (a zero logit where no
+    # input reaches a transposed-conv output) never flip: counted apart
+    return {"bars_compared": compared, "flips": flips,
+            "flip_margin_max": worst,
+            "nearest_margin": float(dist[dist > 0].min()),
+            "cells_at_threshold": int((dist == 0).sum())}
+
+
+def _agree(results, refs, threshold) -> dict:
+    """The flip rule over several responses: totals and extremes."""
+    rules = [_flip_rule(got, *refs[i], threshold)
+             for i, got in enumerate(results)]
+    return {"responses": len(rules),
+            "flips": sum(r["flips"] for r in rules),
+            "responses_with_flips": sum(r["flips"] > 0 for r in rules),
+            "bars_compared": sum(r["bars_compared"] for r in rules),
+            "nearest_margin": min(r["nearest_margin"] for r in rules),
+            "cells_at_threshold": sum(r["cells_at_threshold"]
+                                      for r in rules),
+            "flip_margin_max": max((r["flip_margin_max"] or 0.0)
+                                   for r in rules)}
+
+
+def _midi_bars(resp, cfg) -> np.ndarray:
+    """The bars of a response's MIDI files, [B, N, T, P] uint8."""
+    from musicvae_tpu_torch.midi import tensorize
+
+    out = []
+    for m in resp:
+        raw = m if isinstance(m, bytes) else base64.b64decode(m)
+        b = tensorize.corpus_to_bars([raw], cfg.midi, max_events=1 << 22,
+                                     as_uint8=True)[0]
+        pad = cfg.gen.num_bars - b.shape[0]
+        out.append(np.concatenate([b, np.zeros((pad,) + b.shape[1:],
+                                               np.uint8)]) if pad else b)
+    return np.stack(out)
+
+
+def _load_stats(lat, n, seconds, density) -> dict:
+    lat = sorted(lat)
+    return {"requests": n, "req_per_s": n / seconds, "seconds": seconds,
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)),
+            "density": density}
+
+
+def _tcp_load(service, runner, seeds) -> dict:
+    """STACK_CLIENTS clients at once against serve_socket over
+    ``service``, STACK_PER_CLIENT requests each: req/s by host clock from
+    the first request to the last response, and the responses'
+    latency_ms."""
+    import threading
+
+    from musicvae_tpu_torch import cli
+
+    n = STACK_CLIENTS * STACK_PER_CLIENT
+    ready, res = threading.Event(), {}
+    t = threading.Thread(target=lambda: res.update(rc=cli.serve_socket(
+        service, "127.0.0.1", 0, n, runner, "serve_stack",
+        on_listen=lambda h, p: (res.update(port=p), ready.set()))),
+        daemon=True)
+    t.start()
+    check(ready.wait(120), "the TCP server did not start")
+    lat, dens, errors = [], [], []
+    barrier = threading.Barrier(STACK_CLIENTS, timeout=120)
+
+    def client(i):
+        try:
+            with _connect(res["port"]) as c:
+                barrier.wait()
+                for s in seeds[i::STACK_CLIENTS]:
+                    r = c.request({"seed": s})
+                    lat.append(r["latency_ms"])
+                    dens.append(r["density"])
+        except Exception as e:
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(STACK_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    dt = time.perf_counter() - t0
+    t.join(120)
+    check(not errors and not t.is_alive() and res.get("rc") == 0,
+          f"TCP load: {errors}, rc {res.get('rc')}")
+    return _load_stats(lat, n, dt, float(np.mean(dens)))
+
+
+def _stdin_load(fn, seeds) -> dict:
+    """One stdin transport over a backlog of requests: req/s by host clock
+    around the whole call, and the responses' latency_ms."""
+    lines = "".join(json.dumps({"id": i, "seed": s}) + "\n"
+                    for i, s in enumerate(seeds))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    fn(io.StringIO(lines), out)
+    dt = time.perf_counter() - t0
+    resp = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    check(len(resp) == len(seeds) and all("midi_b64" in r for r in resp),
+          f"stdin load: {resp[:2]}")
+    check([r["id"] for r in resp] == list(range(len(seeds))),
+          "stdin responses out of order")
+    return _load_stats([r["latency_ms"] for r in resp], len(seeds), dt,
+                       float(np.mean([r["density"] for r in resp])))
+
+
+def serve_stack_phase(seed: int, dev: torch.device, card: str):
+    """The production serve stack at full width (c2_gru_4bar, bf16, 4
+    samples x 16 bars) on a checkpoint whose config turns the first-conv
+    kernel on: (a) serial and --coalesce 4 answer 8 seeds, plain and
+    seeded, in agreement under the flip rule, K1 at M=4 alone and M=16
+    coalesced; (b) ``serve --port --coalesce 4 --reload-every 0.5
+    --max-requests`` with 4 concurrent clients, a newer step saved and
+    pushed mid-run; (c) req/s and latency under load for each transport;
+    (d) convert to safetensors and back serves the same bits."""
+    import shutil
+    import tempfile
+    import threading
+
+    from musicvae_tpu_torch import cli
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.config import GenSpec, get_config
+    from musicvae_tpu_torch.data.synthetic import synth_corpus
+    from musicvae_tpu_torch.midi import tensorize
+    from musicvae_tpu_torch.models import layers
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.train.trainer import create_state
+
+    base = get_config("c2_gru_4bar")
+    gen = GenSpec(num_bars=GEN_BARS, num_samples=GEN_SAMPLES)
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, use_pallas_conv1=True),
+        train=dataclasses.replace(base.train, seed=seed), gen=gen)
+    thr = cfg.midi.binarize_threshold
+    _kernels.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="serve_stack_",
+                            dir=_kernels.BUILD_ROOT.parent)
+    ck = os.path.join(root, "ck")
+    out, runs = {"card": card}, {}
+    t_phase = time.perf_counter()
+    # every K1 call's M, by a wrapper around the model's reference to the
+    # kernel's entry point (the launch count stays the wrapper's own)
+    k1_m = []
+    real_k1 = layers.first_conv_s2
+
+    def k1_recorded(x, *a, **kw):
+        k1_m.append(int(x.shape[0]))
+        return real_k1(x, *a, **kw)
+
+    layers.first_conv_s2 = k1_recorded
+    try:
+        def save(step, init_seed):
+            _, state = create_state(cfg, device=dev, seed=init_seed)
+            state.step.fill_(step)
+            check(ckpt_io.save(ckpt_io.make_manager(ck), state, cfg,
+                               wait=True), f"step {step} not saved")
+
+        def service_at():
+            c, state = cli.restore_checkpoint(ck, dev, lambda x: x.replace(
+                gen=gen))
+            return cli.Service(c, state.model, int(state.step))
+
+        save(1, seed)
+        svc = service_at()
+        midi = synth_corpus(1, 8, seed=seed)[0][0]
+        seed_bar = tensorize.corpus_to_bars([midi], cfg.midi,
+                                            as_uint8=True)[0][-1]
+        seeds = [seed * 1000 + 100 + i for i in range(STACK_SEEDS)]
+
+        # (a) serial against coalesced, per seed, plain and seeded
+        runner = cli._CoalescedRunner(svc, STACK_W)
+        runner.warm()
+        svc.warm(seeded=True)
+        torch.cuda.synchronize()
+        agree = {}
+        for name, sb in (("plain", None), ("seeded", seed_bar)):
+            refs = [_serial_reference(cfg, svc.model, dev, s, sb)
+                    for s in seeds]
+            serial = [cli.to_host(svc.dispatch(
+                cli.seed_generator(s, dev), sb)) for s in seeds]
+            check(all(np.array_equal(a, r[0]) for a, r in zip(serial, refs)),
+                  f"{name}: the serial service differs from its sweep")
+            _kernels.reset_launches()
+            del k1_m[:]
+            coal = []
+            for i in range(0, STACK_SEEDS, STACK_W):
+                coal += runner.run([(cli.seed_generator(s, dev), sb)
+                                    for s in seeds[i:i + STACK_W]])
+            torch.cuda.synchronize()
+            check(k1_m == [STACK_W * GEN_SAMPLES] * (GEN_BARS * 2)
+                  and _kernels.LAUNCHES["first_conv_s2"] == len(k1_m),
+                  f"{name}: coalesced K1 Ms {sorted(set(k1_m))} "
+                  f"x{len(k1_m)}, launches {_kernels.LAUNCHES}")
+            agree[name] = _agree(coal, refs, thr)
+            log(f"serve_stack (a) {name}: serial vs --coalesce "
+                f"{STACK_W}, {STACK_SEEDS} seeds: {agree[name]}")
+        _kernels.reset_launches()
+        del k1_m[:]
+        lone = runner.run([(cli.seed_generator(seeds[0], dev), None)])
+        full = runner.run([(cli.seed_generator(seeds[0], dev), None),
+                           (cli.seed_generator(seeds[1], dev), None)])
+        tiers = {"k1_m": sorted(set(k1_m)), "k1_calls": len(k1_m),
+                 "launches": _kernels.LAUNCHES["first_conv_s2"],
+                 "lone_equals_full": bool(np.array_equal(lone[0], full[0]))}
+        log(f"serve_stack (a) tiers: lone then padded full: {tiers}")
+        check(k1_m == [GEN_SAMPLES] * GEN_BARS
+              + [STACK_W * GEN_SAMPLES] * GEN_BARS
+              and tiers["launches"] == 2 * GEN_BARS,
+              f"tiers: K1 Ms {k1_m}")
+        # the tiers compute at different batches: held by the flip rule
+        tiers["lone_vs_full"] = _agree(full[:1], [(lone[0], _serial_reference(
+            cfg, svc.model, dev, seeds[0], None)[1])], thr)
+        out["coalesce"] = {"agree": agree, "tiers": tiers}
+
+        # (b) the CLI's TCP server, 4 clients, a push reload mid-run
+        port = _free_port()
+        n_req = STACK_CLIENTS * 4
+        argv = ["serve", "--ckpt-dir", ck, "--port", port, "--coalesce",
+                STACK_W, "--reload-every", 0.5, "--max-requests", n_req,
+                "--bars", GEN_BARS, "--samples", GEN_SAMPLES]
+        _kernels.reset_launches()
+        del k1_m[:]
+        srv = {}
+        th = threading.Thread(target=lambda: srv.update(
+            rc=cli.main([str(a) for a in argv])), daemon=True)
+        th.start()
+        phase2 = threading.Barrier(STACK_CLIENTS + 1, timeout=300)
+        got, errors, pushes = {}, [], {}
+
+        def client(i):
+            try:
+                with _connect(port) as c:
+                    got[i] = [(s, c.generate(seed=s))
+                              for s in seeds[2 * i:2 * i + 2]]
+                    phase2.wait()       # the main thread saves step 2
+                    phase2.wait()
+                    if i == 0:      # the push, timed by the client
+                        t_push = time.perf_counter()
+                        pushes["reloaded"] = c.reload()
+                        pushes["ms"] = (time.perf_counter() - t_push) * 1e3
+                        pushes["stats"] = c.stats()
+                    phase2.wait()
+                    got[i] += [(s + 1000, c.generate(seed=s + 1000))
+                               for s in seeds[2 * i:2 * i + 2]]
+            except Exception as e:
+                errors.append(repr(e))
+                phase2.abort()
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(STACK_CLIENTS)]
+        for t in threads:
+            t.start()
+        phase2.wait()
+        t0 = time.perf_counter()
+        save(2, seed + 1)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        phase2.wait()
+        phase2.wait()
+        for t in threads:
+            t.join(300)
+        th.join(120)
+        check(not errors and srv.get("rc") == 0 and not th.is_alive(),
+              f"TCP serve: rc {srv.get('rc')}, errors {errors}")
+        runs["serve_stack"] = dict(_kernels.LAUNCHES)
+        tcp_m = list(k1_m)      # the server's K1 calls, warm-up included
+        step2 = service_at()
+        check(pushes["stats"]["step"] == 2 and step2.step == 2
+              and pushes["reloaded"] in (2, None),
+              f"reload did not move step: {pushes}")
+        old_refs, new_refs, old_got, new_got = [], [], [], []
+        for i in range(STACK_CLIENTS):
+            for j, (s, midis) in enumerate(got[i]):
+                bars = _midi_bars(midis, cfg)
+                model = svc.model if j < 2 else step2.model
+                ref = _serial_reference(cfg, model, dev, s, None)
+                (old_got if j < 2 else new_got).append(bars)
+                (old_refs if j < 2 else new_refs).append(ref)
+        ms_set = sorted(set(tcp_m))
+        tcp = {"launches": runs["serve_stack"], "k1_m": ms_set,
+               "k1_calls": len(tcp_m),
+               "dispatches": len(tcp_m) // GEN_BARS,
+               "push": pushes, "save_step2_ms": save_ms,
+               "before_reload": _agree(old_got, old_refs, thr),
+               "after_reload": _agree(new_got, new_refs, thr)}
+        log(f"serve_stack (b) TCP --coalesce {STACK_W}, {STACK_CLIENTS} "
+            f"clients, push reload: {tcp}")
+        check(runs["serve_stack"]["first_conv_s2"] == len(tcp_m)
+              and len(tcp_m) % GEN_BARS == 0
+              and all(len(set(tcp_m[i:i + GEN_BARS])) == 1
+                      for i in range(0, len(tcp_m), GEN_BARS))
+              and set(ms_set) == {GEN_SAMPLES, STACK_W * GEN_SAMPLES},
+              f"TCP: K1 calls {len(tcp_m)} at Ms {ms_set}")
+        out["tcp"] = tcp
+
+        # (c) throughput and latency by transport, step-2 weights
+        load_seeds = [seed * 1000 + 500 + i
+                      for i in range(STACK_CLIENTS * STACK_PER_CLIENT)]
+        runner2 = cli._CoalescedRunner(step2, STACK_W)
+        runner2.warm()
+        step2.warm()
+        timing = {}
+        for name, fn in (
+                ("stdin_serial", lambda i, o: cli.serve_stream(step2, i, o)),
+                ("stdin_pipeline", lambda i, o: cli.serve_stream(
+                    step2, i, o, pipeline=True)),
+                ("stdin_coalesce4", lambda i, o: cli.serve_stream_coalesced(
+                    step2, runner2, i, o))):
+            timing[name] = _stdin_load(fn, load_seeds)
+        timing["tcp_serial_4clients"] = _tcp_load(step2, None, load_seeds)
+        timing["tcp_coalesce4_4clients"] = _tcp_load(step2, runner2,
+                                                     load_seeds)
+        for name, row in timing.items():
+            log(f"serve_stack (c) {name}: {row['req_per_s']:.2f} req/s, "
+                f"latency p50 {row['latency_ms_p50']:.1f} / p99 "
+                f"{row['latency_ms_p99']:.1f} ms, density "
+                f"{row['density']:.4f} ({card})")
+        out["timing"] = timing
+
+        # (d) convert to safetensors and back, on the card
+        st = os.path.join(root, "m.safetensors")
+        ck2 = os.path.join(root, "ck2")
+        t0 = time.perf_counter()
+        rc, o, e = _cli(["convert", "--to-safetensors", ck, "--out", st])
+        check(rc == 0, f"convert --to-safetensors: {e[-2000:]}")
+        rc, o, e = _cli(["convert", "--from-safetensors", st, "--config",
+                         "c2_gru_4bar", "--out", ck2, "--step", 2])
+        check(rc == 0, f"convert --from-safetensors: {e[-2000:]}")
+        convert_ms = (time.perf_counter() - t0) * 1e3
+        lines = "".join(json.dumps({"id": i, "seed": s}) + "\n"
+                        for i, s in enumerate(seeds[:2]))
+        served = {}
+        for name, extra in (("original", ["--ckpt-dir", ck]),
+                            ("converted", ["--ckpt-dir", ck2,
+                                           "--use-pallas-conv1"])):
+            rc, o, e = _cli(["serve", *extra, "--bars", GEN_BARS,
+                             "--samples", GEN_SAMPLES], stdin=lines)
+            check(rc == 0, f"serve {name}: {e[-2000:]}")
+            served[name] = [r["midi_b64"] for r in map(
+                json.loads, o.splitlines())]
+        out["convert"] = {"ms": convert_ms, "bytes": os.path.getsize(st),
+                          "same_bits": served["original"]
+                          == served["converted"]}
+        log(f"serve_stack (d) convert round trip: {out['convert']}")
+        check(out["convert"]["same_bits"],
+              "the converted checkpoint serves other bits")
+    finally:
+        layers.first_conv_s2 = real_k1
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serve_stack phase: {out['seconds']:.1f} s")
+    return runs, out
+
+
 def profile_phase(seed: int, dev: torch.device):
     """Development aid, not part of the default run: where one train
     step's time goes. Which parts of a step the launch queue can hold
@@ -2206,7 +2640,7 @@ def profile_phase(seed: int, dev: torch.device):
 
 
 PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train",
-          "ckpt", "corpus")
+          "ckpt", "corpus", "serve_stack")
 
 
 def main() -> int:
@@ -2263,6 +2697,10 @@ def main() -> int:
     if "corpus" in only:
         corpus_runs, details["corpus"] = corpus_phase(args.seed, dev, card)
         runs.update(corpus_runs)
+    if "serve_stack" in only:
+        stack_runs, details["serve_stack"] = serve_stack_phase(
+            args.seed, dev, card)
+        runs.update(stack_runs)
     if "profile" in only:
         details["profile"] = profile_phase(args.seed, dev)
 

@@ -1,7 +1,10 @@
-"""JAX (flax) params, and a whole JAX train state → the port's layouts.
+"""JAX (flax) params, a whole JAX train state, and torch state dicts →
+the port's layouts.
 
 The port's own copy of the flax → torch direction of the JAX package's
-checkpoints/torch_convert.py, for the kinds the port runs. Its output
+checkpoints/torch_convert.py, for the kinds the port runs, and
+``canonical_state_dict``, which checks a torch state dict against a config
+and brings it to the form that round trip gives. Its output
 equals ``flax_params_to_torch_state_dict`` key for key (the names are the
 torch oracle's), and ``PianoRollVAE.load_state_dict(strict=True)`` takes
 it as it is. Layouts:
@@ -22,7 +25,54 @@ import numpy as np
 import torch
 
 from musicvae_tpu_torch.config import Config
-from musicvae_tpu_torch.models.vae import check_supported
+from musicvae_tpu_torch.models.vae import PianoRollVAE, check_supported
+
+
+class StateDictMismatch(ValueError):
+    """A state dict whose keys or shapes are not those of the config's
+    model."""
+
+
+def canonical_state_dict(sd: Dict[str, Any],
+                         cfg: Config) -> Dict[str, torch.Tensor]:
+    """A torch state dict (the oracle's names: a ``--to-torch`` export, or
+    a reference-style model) as the port's checkpoints hold it: every key
+    and shape checked against the model ``cfg`` builds, before anything
+    is written, then f32 CPU tensors in the model's order.
+
+    Each GRU's r/z hidden biases ``bias_hh[:2H]`` are folded into
+    ``bias_ih[:2H]`` (both sit inside the same sigmoid) and zeroed: flax
+    keeps one bias there, so this is what the JAX package's
+    ``torch_state_dict_to_flax`` → ``flax_params_to_torch_state_dict``
+    round trip gives, bit for bit (the sum in the file's dtype, then the
+    cast to f32)."""
+    check_supported(cfg.model)
+    with torch.device("meta"):
+        want = {n: tuple(t.shape) for n, t in
+                PianoRollVAE(cfg.model, cfg.midi).state_dict().items()}
+    got = {n: torch.as_tensor(v).detach().cpu() for n, v in sd.items()}
+    problems = [f"{n}: missing" for n in want if n not in got]
+    problems += [f"{n}: not a parameter of config {cfg.name}"
+                 for n in got if n not in want]
+    problems += [f"{n}: file has {tuple(got[n].shape)}, config {cfg.name} "
+                 f"expects {shape}" for n, shape in want.items()
+                 if n in got and tuple(got[n].shape) != shape]
+    if problems:
+        raise StateDictMismatch(
+            f"state dict does not match config {cfg.name!r}:\n  "
+            + "\n  ".join(problems[:8]))
+    out = {}
+    for n in want:
+        t = got[n]
+        if n.endswith(".bias_ih"):
+            hh = got[n[:-len("bias_ih")] + "bias_hh"]
+            h2 = 2 * (hh.shape[0] // 3)
+            t = torch.cat([t[:h2] + hh[:h2], t[h2:]])
+        elif n.endswith(".bias_hh"):
+            h2 = 2 * (t.shape[0] // 3)
+            t = torch.cat([torch.zeros_like(t[:h2]), t[h2:]])
+        out[n] = t.to(torch.float32).contiguous()
+    return out
 
 
 def flax_params_to_state_dict(params: Dict[str, Any],

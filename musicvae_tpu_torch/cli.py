@@ -1,6 +1,7 @@
 """Command line: ``python -m musicvae_tpu_torch`` ``preprocess``, ``train``,
-``eval``, ``eval-gen``, ``generate``, ``reconstruct``, ``describe`` and
-``serve``: the counterparts of the JAX package's cli.py commands.
+``eval``, ``eval-gen``, ``generate``, ``reconstruct``, ``describe``,
+``convert`` and ``serve``: the counterparts of the JAX package's cli.py
+commands.
 
 ``preprocess`` tensorizes a MIDI glob (or a synthetic corpus) into the
 ``.npz`` bar cache on the host. ``train`` trains a config on the card, on
@@ -15,25 +16,37 @@ music (``--seed-midi``, ``--encode``, ``--interp-midi-b``); ``reconstruct``
 encodes and decodes MIDI files and reports cell P/R/F1; ``eval-gen``
 scores generations against a corpus (utils/genmetrics.py); ``describe``
 reports what a checkpoint directory holds without touching a device
-(``cmd_describe``). Streaming, the sharded corpus and the cond kind's
-flags are later items of ROADMAP.md; they are parsed and refused.
+(``cmd_describe``); ``convert`` moves weights between the port's
+checkpoints and torch or safetensors files (``cmd_convert``). Streaming,
+the sharded corpus and the cond kind's flags are later items of
+ROADMAP.md; they are parsed and refused.
 
-``serve`` is the counterpart of ``cmd_serve`` with its default
-stdin transport (``_serve_stdin_serial``): a persistent generation service
-speaking the line-delimited JSON protocol of docs/SERVING.md, over a
-checkpoint (``--ckpt-dir``, its EMA weights with ``--ema``), a state dict
+``serve`` is the counterpart of ``cmd_serve``: a persistent generation
+service speaking the line-delimited JSON protocol of docs/SERVING.md, over
+a checkpoint (``--ckpt-dir``, its EMA weights with ``--ema``), a state dict
 (``--weights``) or random weights.
 
-  request:  {"id": any, "seed": int}
+  request:  {"id": any, "seed": int, "seed_midi_b64": str?}
   response: {"id": any, "midi_b64": [str, ...], "density": float,
              "latency_ms": float}
   stats:    {"id": any, "cmd": "stats"} → {"id": any, "stats": {served,
              errors, requests, step, config, samples, bars, uptime_s}}
+  reload:   {"id": any, "cmd": "reload"} → {"id": any, "reloaded":
+             step|null, "step": current}
   error:    {"id": any, "error": str}
 
-Every failure, a request for a feature the port has not reached included,
-is answered in-band under the request's id; the service keeps running.
-EOF on stdin ends it. Logs go to stderr; stdout carries protocol lines.
+``seed_midi_b64`` (base64 SMF bytes) seeds the prev-bar conditioning with
+the file's last bar; ``chord``/``key`` are ignored, as the JAX package
+ignores them for kinds other than cond. Transports: stdin, one sweep a
+request (``serve_stream``; ``--pipeline`` enqueues sweep i+1 on the card
+before pulling and exporting i), stdin under ``--coalesce W`` (up to W
+queued requests in one sweep, ``serve_stream_coalesced``), and a threaded
+TCP server (``--port``, ``serve_socket``) with one device lock, or a
+dispatcher thread under ``--coalesce``. ``--reload-every SECS`` and the
+``reload`` command swap newer weights of the checkpoint directory into the
+running service (``_make_reload_once``). Every failure is answered
+in-band under the request's id; the service keeps running. EOF on stdin
+ends it. Logs go to stderr; stdout carries protocol lines.
 """
 
 from __future__ import annotations
@@ -44,7 +57,9 @@ import copy
 import dataclasses
 import json
 import os
+import queue
 import sys
+import threading
 import time
 import traceback
 from typing import List, Optional, TextIO
@@ -53,43 +68,127 @@ import numpy as np
 import torch
 
 from musicvae_tpu_torch.config import Config, GenSpec, get_config
-from musicvae_tpu_torch.generate.sampler import bars_to_midi, make_generate_fn
+from musicvae_tpu_torch.generate.sampler import (
+    bars_to_midi, make_coalesced_generate_fn, make_generate_fn,
+    seed_generator)
 from musicvae_tpu_torch.midi.smf import SMFError
 from musicvae_tpu_torch.models.vae import PianoRollVAE, build_model
-
-# serve flags and request fields of the JAX package that later slices of
-# the port bring (ROADMAP.md); using one is an error, never a silent no-op
-_LATER_FLAGS = ("port", "coalesce", "reload_every", "pipeline", "warm_seed")
-_LATER_FIELDS = ("seed_midi_b64",)
-_LATER_CMDS = ("reload",)
+from musicvae_tpu_torch.ops.pack import pack_bits, unpack_bits_np
 
 # the JAX package's wording, for the commands that take --ema
 _EMA_ERROR = ("error: --ema needs a checkpoint trained with "
               "--ema-decay > 0 (this one has no EMA weights)")
 
 
-class Service:
-    """One generation service: a model, its sweep function and the
-    counters ``stats`` reports. ``handle`` answers one protocol line."""
+def _gen_response(rid, bars, cfg: Config, t_req: float) -> dict:
+    """The one generation-response schema of every transport: base64 SMF
+    a sample, density, and latency_ms from the caller's ``t_req`` (the
+    request's dispatch on the serial paths, the drain window's start on
+    the coalesced stdin path; queue wait included either way)."""
+    midis = [base64.b64encode(bars_to_midi(bars[i], cfg)).decode()
+             for i in range(bars.shape[0])]
+    return {"id": rid, "midi_b64": midis,
+            "density": float(bars.mean()),
+            "latency_ms": round(1e3 * (time.perf_counter() - t_req), 1)}
 
-    def __init__(self, cfg: Config, model: PianoRollVAE, step: int = 0):
-        self.cfg = cfg
-        self.model = model
-        self.device = next(model.parameters()).device
+
+def _check_cmd(req: dict) -> None:
+    """An unknown ``cmd`` is an in-band error, never a generation."""
+    cmd = req.get("cmd")
+    if cmd is not None and cmd not in ("stats", "reload"):
+        raise ValueError(f"unknown cmd {cmd!r} (expected 'stats' or "
+                         f"'reload')")
+
+
+def _stats_response(rid, cfg: Config, step: int, served: int, errors: int,
+                    requests: int, t_start: float) -> dict:
+    """The live counters ``{"cmd": "stats"}`` answers with; a hot reload
+    shows as a change of ``step``."""
+    return {"id": rid, "stats": {
+        "served": served, "errors": errors, "requests": requests,
+        "step": step, "config": cfg.name,
+        "samples": cfg.gen.num_samples, "bars": cfg.gen.num_bars,
+        "uptime_s": round(time.perf_counter() - t_start, 1)}}
+
+
+def to_host(packed: torch.Tensor) -> np.ndarray:
+    """Pull 1-bit packed bars (``pack_bits`` on the card: 1/8 of the bytes
+    cross) to the host, waiting for their sweep, and unpack them to
+    uint8."""
+    return unpack_bits_np(packed.cpu().numpy())
+
+
+def _seed_bar(cfg: Config, b64: str) -> np.ndarray:
+    """The last bar, uint8 [T, P], of a base64 SMF file."""
+    from musicvae_tpu_torch.midi import tensorize
+
+    bars = tensorize.corpus_to_bars([base64.b64decode(b64)], cfg.midi,
+                                    as_uint8=True)[0]
+    if bars.shape[0] == 0:
+        raise ValueError("seed MIDI contains no bars")
+    return bars[-1]
+
+
+class _Weights:
+    """One set of served weights with its sweep functions. A reload
+    replaces the whole object in one assignment: a sweep that has read it
+    finishes on the weights it started with, and no parameter is ever
+    written while a sweep reads it."""
+
+    def __init__(self, cfg: Config, model: PianoRollVAE, step: int):
+        self.model, self.step = model, step
         self.generate = make_generate_fn(cfg, model)
-        self.step = step
+        self.coalesced = make_coalesced_generate_fn(cfg, model)
+
+
+class Service:
+    """One generation service: the served weights, the request parser
+    every transport shares, and the counters ``stats`` reports.
+    ``handle`` answers one protocol line."""
+
+    def __init__(self, cfg: Config, model: PianoRollVAE, step: int = 0,
+                 reload_once=None):
+        self.cfg = cfg
+        self.device = next(model.parameters()).device
+        self.weights = _Weights(cfg, model, step)
+        # () -> newer step swapped in, or None (_make_reload_once); None
+        # when there is no checkpoint directory to reload from
+        self.reload_once = reload_once
         self.served = self.errors = self.requests = 0
         self.t_start = time.perf_counter()
+        self.lock = threading.Lock()        # the counters
 
-    def warm(self) -> None:
-        """One sweep, so the first request pays no one-time set-up (the
-        kernel build, cuDNN's algorithm choice)."""
-        self.generate(torch.Generator(self.device).manual_seed(0))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @property
+    def model(self) -> PianoRollVAE:
+        return self.weights.model
 
-    def handle(self, line: str) -> Optional[dict]:
-        """The response to one request line; None for a blank line."""
+    @property
+    def generate(self):
+        return self.weights.generate
+
+    @property
+    def step(self) -> int:
+        return self.weights.step
+
+    def swap(self, model: PianoRollVAE, step: int) -> None:
+        self.weights = _Weights(self.cfg, model, step)
+
+    def warm(self, seeded: bool = False) -> None:
+        """One sweep (and with ``seeded`` one from a seed bar), so the
+        first request pays no one-time set-up (the kernel build, cuDNN's
+        algorithm choice)."""
+        seed_bars = [None]
+        if seeded:
+            seed_bars.append(np.zeros((self.cfg.midi.steps_per_bar,
+                                       self.cfg.midi.num_pitches), np.uint8))
+        for sb in seed_bars:
+            to_host(self.dispatch(seed_generator(0, self.device), sb))
+
+    def prepare(self, line: str):
+        """(rid, kind, payload) of one request line, None for a blank one.
+        kind "gen": payload (generator, seed bar [T, P] uint8 or None), the
+        request counted; "stats": the request count so far; "reload":
+        None; "error": the message (counted when answered)."""
         line = line.strip()
         if not line:
             return None
@@ -99,75 +198,583 @@ class Service:
             if not isinstance(req, dict):
                 raise ValueError("a request is a JSON object")
             rid = req.get("id")
+            _check_cmd(req)
             cmd = req.get("cmd")
             if cmd == "stats":
-                return self._stats(rid)
-            if cmd in _LATER_CMDS:
-                raise NotImplementedError(
-                    f"cmd {cmd!r} is not in the PyTorch port yet")
-            if cmd is not None:
-                raise ValueError(f"unknown cmd {cmd!r} (expected 'stats')")
-            for field in _LATER_FIELDS:
-                if req.get(field) is not None:
-                    raise NotImplementedError(
-                        f"request field {field!r} is not in the PyTorch "
-                        "port yet")
-            seed = int(req.get("seed", self.requests))
-            self.requests += 1
-            resp = self._generate(rid, seed)
-            self.served += 1
-            return resp
+                with self.lock:
+                    return rid, cmd, self.requests
+            if cmd == "reload":
+                return rid, cmd, None
+            with self.lock:
+                seed = int(req.get("seed", self.requests))
+                self.requests += 1
+            sb = None
+            if req.get("seed_midi_b64"):
+                sb = _seed_bar(self.cfg, req["seed_midi_b64"])
+            return rid, "gen", (seed_generator(seed, self.device), sb)
         except Exception as e:      # the service never dies on a request
-            self.errors += 1
             traceback.print_exc(file=sys.stderr)
-            return {"id": rid, "error": f"{type(e).__name__}: {e}"}
+            return rid, "error", f"{type(e).__name__}: {e}"
 
-    def _generate(self, rid, seed: int) -> dict:
+    def dispatch(self, generator: torch.Generator,
+                 seed_bar: Optional[np.ndarray]) -> torch.Tensor:
+        """Enqueue one request's sweep: its bars, 1-bit packed on the card
+        (1/8 of the bytes cross to the host)."""
+        sb = None
+        if seed_bar is not None:        # contiguous: K1 refuses a stride-0
+            sb = torch.from_numpy(seed_bar).to(self.device)[None].repeat(
+                self.cfg.gen.num_samples, 1, 1)
+        return pack_bits(self.weights.generate(generator, seed_bar=sb))
+
+    def respond(self, rid, bars: np.ndarray, t_req: float) -> dict:
+        resp = _gen_response(rid, bars, self.cfg, t_req)
+        with self.lock:
+            self.served += 1
+        return resp
+
+    def error(self, rid, msg: str) -> dict:
+        with self.lock:
+            self.errors += 1
+        return {"id": rid, "error": msg}
+
+    def stats(self, rid, requests: int) -> dict:
+        with self.lock:
+            return _stats_response(rid, self.cfg, self.step, self.served,
+                                   self.errors, requests, self.t_start)
+
+    def reload(self, rid) -> dict:
+        """The ``reload`` command's answer; raises when it fails."""
+        if self.reload_once is None:
+            raise ValueError("reload needs a checkpoint directory: start "
+                             "serve with --ckpt-dir")
+        return {"id": rid, "reloaded": self.reload_once(), "step": self.step}
+
+    def answer(self, entry) -> dict:
+        """The response to a prepared command or error entry."""
+        rid, kind, payload = entry
+        if kind == "error":
+            return self.error(rid, payload)
+        if kind == "stats":
+            return self.stats(rid, payload)
+        try:
+            return self.reload(rid)
+        except Exception as e:
+            traceback.print_exc(file=sys.stderr)
+            return self.error(rid, f"{type(e).__name__}: {e}")
+
+    def handle(self, line: str) -> Optional[dict]:
+        """The response to one request line; None for a blank line."""
+        entry = self.prepare(line)
+        if entry is None:
+            return None
+        rid, kind, payload = entry
+        if kind != "gen":
+            return self.answer(entry)
         t_req = time.perf_counter()
-        gen = torch.Generator(self.device).manual_seed(seed)
-        bars = self.generate(gen).cpu().numpy()
-        midis = [base64.b64encode(bars_to_midi(bars[i], self.cfg)).decode()
-                 for i in range(bars.shape[0])]
-        return {"id": rid, "midi_b64": midis,
-                "density": float(bars.mean()),
-                "latency_ms": round(1e3 * (time.perf_counter() - t_req), 1)}
-
-    def _stats(self, rid) -> dict:
-        cfg = self.cfg
-        return {"id": rid, "stats": {
-            "served": self.served, "errors": self.errors,
-            "requests": self.requests, "step": self.step,
-            "config": cfg.name, "samples": cfg.gen.num_samples,
-            "bars": cfg.gen.num_bars,
-            "uptime_s": round(time.perf_counter() - self.t_start, 1)}}
+        try:
+            return self.respond(rid, to_host(self.dispatch(*payload)),
+                                t_req)
+        except Exception as e:
+            traceback.print_exc(file=sys.stderr)
+            return self.error(rid, f"{type(e).__name__}: {e}")
 
 
-def serve_stream(service: Service, inp: TextIO, out: TextIO) -> int:
-    """Answer request lines from ``inp`` on ``out`` until EOF, in order."""
-    t0 = time.perf_counter()
-    for line in inp:
-        resp = service.handle(line)
-        if resp is not None:
-            out.write(json.dumps(resp) + "\n")
-            out.flush()
-    dt = time.perf_counter() - t0
-    print(f"served {service.served} requests, {service.errors} errors in "
-          f"{dt:.1f}s", file=sys.stderr)
+def _line_queue(inp: TextIO) -> "queue.Queue":
+    """A queue fed from ``inp`` by a reader thread, ending with None at
+    EOF: the serve loop can see whether a next request is already waiting
+    without ever blocking a ready response on more input."""
+    q: "queue.Queue" = queue.Queue(maxsize=256)
+
+    def read():
+        for ln in inp:
+            q.put(ln)
+        q.put(None)
+
+    threading.Thread(target=read, daemon=True, name="serve-stdin").start()
+    return q
+
+
+def _summary(service: Service, t0: Optional[float], before) -> None:
+    """The transport's closing line: what it served since the counters
+    read ``before`` (served, errors), from its first request on."""
+    served, errors = (service.served - before[0],
+                      service.errors - before[1])
+    dt = (time.perf_counter() - t0) if t0 is not None else 0.0
+    rate = f" ({served / dt:.1f} req/s)" if served and dt > 0 else ""
+    print(f"served {served} requests, {errors} errors in {dt:.1f}s{rate}",
+          file=sys.stderr)
+
+
+def serve_stream(service: Service, inp: TextIO, out: TextIO,
+                 pipeline: bool = False) -> int:
+    """Answer request lines from ``inp`` on ``out`` until EOF, in order,
+    one sweep a request. With ``pipeline``, when the next request is
+    already waiting, its sweep is enqueued on the card before request i
+    is pulled and exported (depth 1): the host exports i while the card
+    runs i+1. An idle service still answers each request at once."""
+    inq = _line_queue(inp)
+    pending = []        # at most one in flight: (rid, packed bars, t_req)
+    t_serve0, before = None, (service.served, service.errors)
+
+    def emit(resp: dict) -> None:
+        out.write(json.dumps(resp) + "\n")
+        out.flush()
+
+    def flush() -> None:
+        """Pull the sweep in flight, export and answer it; a failure on
+        the card surfaces here, in-band under its own request's id."""
+        if not pending:
+            return
+        rid, packed, t_req = pending.pop()
+        try:
+            emit(service.respond(rid, to_host(packed), t_req))
+        except Exception as e:
+            traceback.print_exc(file=sys.stderr)
+            emit(service.error(rid, f"{type(e).__name__}: {e}"))
+
+    while True:
+        line = inq.get()
+        if line is None:
+            flush()
+            break
+        entry = service.prepare(line)
+        if entry is None:
+            flush()     # a blank line must not strand a ready response
+            continue
+        rid, kind, payload = entry
+        if kind != "gen":
+            flush()     # responses keep request order
+            emit(service.answer(entry))
+            continue
+        t_req = time.perf_counter()
+        if t_serve0 is None:
+            t_serve0 = t_req
+        try:
+            packed = service.dispatch(*payload)
+        except Exception as e:
+            traceback.print_exc(file=sys.stderr)
+            flush()
+            emit(service.error(rid, f"{type(e).__name__}: {e}"))
+            continue
+        flush()         # export request i while the card runs i+1
+        pending.append((rid, packed, t_req))
+        if not pipeline or inq.empty():
+            flush()     # idle (or serial mode): answer at once
+    _summary(service, t_serve0, before)
     return 0
+
+
+class _CoalescedRunner:
+    """Host side of dynamic batching: up to ``width`` requests' (generator,
+    seed bar) into one coalesced sweep (``make_coalesced_generate_fn``).
+    Two tiers: a lone request runs at W=1, at a lone sweep's cost; 2+ pad
+    to the full width with seed-0 generators and zero seed bars, whose
+    bars are dropped before the unpack. Both tiers run the same sweep, so
+    a slot's music does not depend on the tier."""
+
+    def __init__(self, service: Service, width: int):
+        self.service, self.width = service, width
+        cfg = service.cfg
+        self._shape = (cfg.gen.num_samples, cfg.midi.steps_per_bar,
+                       cfg.midi.num_pitches)
+
+    def warm(self) -> None:
+        """Both tiers once, so no request pays a first call's set-up."""
+        dev = self.service.device
+        self.run([(seed_generator(0, dev), None)])
+        if self.width > 1:
+            self.run([(seed_generator(0, dev), None)] * 2)
+
+    def run(self, items) -> List[np.ndarray]:
+        """items: [(generator, seed bar [T, P] uint8 or None), ...], at
+        most ``width`` → one uint8 [B, N, T, P] bars array an item, in
+        order."""
+        dev = self.service.device
+        n = len(items)
+        pad = (1 if n == 1 else self.width) - n
+        gens = [g for g, _ in items] + [seed_generator(0, dev)
+                                        for _ in range(pad)]
+        seed_bars = np.zeros((n + pad,) + self._shape, np.uint8)
+        for i, (_, sb) in enumerate(items):
+            if sb is not None:
+                seed_bars[i] = sb
+        # one read of the weights: a reload cannot tear the sweep
+        coalesced = self.service.weights.coalesced
+        packed = coalesced(gens, torch.from_numpy(seed_bars).to(dev))
+        bars = to_host(packed[:n])
+        return [bars[i] for i in range(n)]
+
+
+def serve_stream_coalesced(service: Service, runner: _CoalescedRunner,
+                           inp: TextIO, out: TextIO) -> int:
+    """stdin under ``--coalesce W``: drain up to W queued lines at a time
+    and answer their generations from one sweep. Responses keep request
+    order; a malformed request gets its error in position without
+    spoiling the batch; a failure of the sweep is reported under every
+    request of it. A ``reload`` line is a barrier: the drained lines
+    split around it, so every generation after it runs on the reloaded
+    weights."""
+    inq = _line_queue(inp)
+    t_serve0, before = None, (service.served, service.errors)
+
+    def emit(resp: dict) -> None:
+        out.write(json.dumps(resp) + "\n")
+        out.flush()
+
+    eof = False
+    while not eof:
+        lines = [inq.get()]
+        while len(lines) < runner.width:
+            try:
+                lines.append(inq.get_nowait())
+            except queue.Empty:
+                break
+        entries = []
+        for line in lines:
+            if line is None:
+                eof = True
+                break
+            entry = service.prepare(line)
+            if entry is not None:
+                entries.append(entry)
+        if not entries:
+            continue
+        t_req = time.perf_counter()
+        if t_serve0 is None:
+            t_serve0 = t_req
+        groups: list = [[]]             # generation groups split by reloads
+        for e in entries:
+            if e[1] == "reload":
+                groups += [e, []]
+            else:
+                groups[-1].append(e)
+        for grp in groups:
+            if isinstance(grp, tuple):      # the reload barrier itself
+                emit(service.answer(grp))
+                continue
+            gens = [payload for _, kind, payload in grp if kind == "gen"]
+            results, run_err = iter(()), None
+            if gens:
+                try:
+                    results = iter(runner.run(gens))
+                except Exception as e:
+                    traceback.print_exc(file=sys.stderr)
+                    run_err = f"{type(e).__name__}: {e}"
+            for entry in grp:
+                rid, kind, _ = entry
+                if kind != "gen":
+                    emit(service.answer(entry))
+                elif run_err is not None:
+                    emit(service.error(rid, run_err))
+                else:
+                    emit(service.respond(rid, next(results), t_req))
+    _summary(service, t_serve0, before)
+    return 0
+
+
+class _Batcher:
+    """Cross-client coalescing for the TCP transport: handler threads
+    submit (generator, seed bar) and wait on a Future; one dispatcher
+    thread drains the queue up to the runner's width and answers a whole
+    batch from one sweep."""
+
+    def __init__(self, runner: _CoalescedRunner):
+        self.runner = runner
+        self.q: "queue.Queue" = queue.Queue()
+        self._lock = threading.Lock()
+        self._stopped = False
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="serve-batcher")
+        self._thread.start()
+
+    def submit(self, item):
+        import concurrent.futures
+
+        fut: "concurrent.futures.Future" = concurrent.futures.Future()
+        # the lock orders submit against stop(): an item enqueued here is
+        # ahead of the stop sentinel, so no handler waits forever
+        with self._lock:
+            if self._stopped:
+                fut.set_exception(ConnectionError(
+                    "service is shutting down"))
+                return fut
+            self.q.put((item, fut))
+        return fut
+
+    def stop(self) -> None:
+        """End the dispatcher thread; later submissions fail at once."""
+        with self._lock:
+            self._stopped = True
+            self.q.put(None)
+        self._thread.join(timeout=60)
+
+    def _loop(self) -> None:
+        while True:
+            first = self.q.get()
+            if first is None:               # stop() sentinel
+                return
+            batch = [first]
+            while len(batch) < self.runner.width:
+                try:
+                    nxt = self.q.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self.q.put(None)        # answer this batch first
+                    break
+                batch.append(nxt)
+            try:
+                results = self.runner.run([item for item, _ in batch])
+                for (_, fut), bars in zip(batch, results):
+                    fut.set_result(bars)
+            except Exception as e:  # a failed sweep fails each request
+                for _, fut in batch:
+                    fut.set_exception(e)
+
+
+def _make_reload_once(manager, service: Service, use_ema: bool = False):
+    """Hot reload: ``reload_once() -> step or None`` reads the checkpoint
+    directory again and, when it holds a newer step, restores that step
+    into a second model on the service's device and swaps it in (the
+    step; None when already current). Requests that have started finish
+    on the weights they started with. A step that fails to restore (e.g.
+    one being written) raises: the watcher retries, the ``reload``
+    command reports it in-band. Nothing is ever quarantined: the server
+    only reads the directory, which the trainer owns. One reload at a
+    time; poll and push may both run."""
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.train.trainer import create_state
+
+    lock = threading.Lock()
+    shapes = _param_shapes(service.cfg)
+
+    def reload_once() -> Optional[int]:
+        with lock:
+            manager.reload()
+            latest = manager.latest_step()
+            if latest is None or latest <= service.step:
+                return None
+            cfg_new = ckpt_io.restore_config(manager, step=latest)
+            if use_ema and cfg_new.train.ema_decay <= 0:
+                raise ValueError(
+                    f"step {latest} carries no EMA weights but the "
+                    f"service was started with --ema; retrain with "
+                    f"--ema-decay or restart the service without --ema")
+            if _param_shapes(cfg_new) != shapes:
+                raise ValueError(
+                    f"step {latest} was trained with a different model "
+                    f"structure than this service compiled for; restart "
+                    f"the service on the new checkpoint")
+            # the service's own model settings; the step's train spec
+            # decides whether the state holds EMA weights
+            _, state = create_state(service.cfg.replace(train=cfg_new.train),
+                                    device=service.device)
+            state, _ = ckpt_io.restore(manager, state, step=latest)
+            service.swap(state.ema_model if use_ema else state.model,
+                         latest)
+            print(f"reloaded checkpoint step {latest}", file=sys.stderr)
+            return latest
+
+    return reload_once
+
+
+def _param_shapes(cfg: Config) -> dict:
+    """{name: shape} of the parameters of cfg's model (built on the meta
+    device: no memory, no draws)."""
+    with torch.device("meta"):
+        model = PianoRollVAE(cfg.model, cfg.midi)
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+
+def _start_reload_watcher(every: float, reload_once,
+                          stop: threading.Event) -> threading.Thread:
+    """``serve --reload-every SECS``: a daemon thread calls
+    ``reload_once`` every ``every`` seconds until ``stop`` is set; a
+    failure is logged and tried again at the next poll."""
+
+    def watch():
+        while not stop.wait(every):
+            try:
+                reload_once()
+            except Exception as e:
+                print(f"warning: checkpoint reload failed "
+                      f"({type(e).__name__}: {e}); will retry",
+                      file=sys.stderr)
+
+    t = threading.Thread(target=watch, daemon=True, name="serve-reload")
+    t.start()
+    return t
+
+
+def serve_socket(service: Service, host: str = "127.0.0.1", port: int = 0,
+                 max_requests: int = 0, runner=None, banner: str = "",
+                 on_listen=None) -> int:
+    """The TCP transport: a threaded server speaking the same protocol, a
+    thread a connection, all on the one service.
+
+    One device lock serializes a request's dispatch and pull (interleaved
+    sweeps on one stream would be right but slow, and would share the
+    launch counters); the SMF export of each response happens outside it,
+    so one client's export overlaps another's sweep. With ``runner``
+    (``--coalesce W``) a ``_Batcher`` takes the lock's place: handler
+    threads submit and one dispatcher answers up to W queued requests
+    from one sweep. A connection's responses keep its request order.
+
+    ``max_requests`` > 0 stops the server after that many generation
+    requests. ``on_listen(host, port)`` is called once the socket is bound
+    (``port`` 0 picks a free one; the address is also announced on
+    stderr). A SIGTERM or ^C stops accepting, lets the requests in flight
+    finish and returns; the handlers are installed only when this runs
+    on the main thread."""
+    import socketserver
+
+    from musicvae_tpu_torch.train.preemption import GracefulStop
+
+    cfg = service.cfg
+    batcher = _Batcher(runner) if runner is not None else None
+    device_lock = threading.Lock()
+    state_lock = threading.Lock()
+    counts = {"t0": None, "inflight": 0, "answered": 0}
+    before = (service.served, service.errors)
+    draining = threading.Event()
+
+    def generate(payload):
+        if batcher is not None:
+            return batcher.submit(payload).result()
+        with device_lock:       # one sweep in flight, dispatch and pull
+            return to_host(service.dispatch(*payload))
+
+    class Handler(socketserver.StreamRequestHandler):
+        def handle(self):
+            for raw in self.rfile:
+                if draining.is_set():
+                    return
+                # undecodable bytes reach json.loads and are answered
+                # in-band like any other malformed request
+                line = raw.decode("utf-8", errors="replace")
+                entry = service.prepare(line)
+                if entry is None:
+                    continue
+                rid, kind, payload = entry
+                if kind != "gen":       # an error counts, a command not
+                    resp = service.answer(entry)
+                    ok = self._write(resp)
+                    if self._count_done("error" in resp) or not ok:
+                        return
+                    continue
+                with state_lock:
+                    counts["inflight"] += 1
+                    if counts["t0"] is None:
+                        counts["t0"] = time.perf_counter()
+                try:
+                    t_req = time.perf_counter()
+                    try:
+                        bars = generate(payload)
+                        resp = service.respond(rid, bars, t_req)
+                    except Exception as e:
+                        traceback.print_exc(file=sys.stderr)
+                        resp = service.error(rid, f"{type(e).__name__}: {e}")
+                    # the stop check runs even when the reply could not be
+                    # written: the request was served and counted
+                    ok = self._write(resp)
+                    if self._count_done(True) or not ok:
+                        return
+                finally:
+                    with state_lock:
+                        counts["inflight"] -= 1
+
+        def _write(self, resp: dict) -> bool:
+            try:
+                self.wfile.write((json.dumps(resp) + "\n").encode())
+                self.wfile.flush()
+                return True
+            except (BrokenPipeError, ConnectionResetError):
+                return False    # the client went away mid-reply
+
+        def _count_done(self, answered: bool) -> bool:
+            """Count an answered request (a generation or an error) and
+            return True, with the server told to stop, once this server
+            has answered ``max_requests``."""
+            with state_lock:
+                counts["answered"] += answered
+                done = 0 < max_requests <= counts["answered"]
+            if done:
+                threading.Thread(target=server.shutdown, daemon=True).start()
+            return done
+
+    class Server(socketserver.ThreadingTCPServer):
+        allow_reuse_address = True
+        daemon_threads = True
+
+    closed = threading.Event()
+    with Server((host, port), Handler) as server, GracefulStop() as stop:
+        bound_host, bound_port = server.server_address[:2]
+        print(f"{banner}; listening on {bound_host}:{bound_port}",
+              file=sys.stderr)
+        if on_listen is not None:
+            on_listen(bound_host, bound_port)
+
+        def watch_signals():
+            while not closed.wait(0.1):
+                if stop.requested:
+                    server.shutdown()
+                    return
+
+        threading.Thread(target=watch_signals, daemon=True,
+                         name="serve-signals").start()
+        try:
+            server.serve_forever(poll_interval=0.1)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            closed.set()
+            if stop.requested:
+                draining.set()      # handlers take no new lines
+                _drain(counts, state_lock)
+            if batcher is not None:
+                batcher.stop()
+    _summary(service, counts["t0"], before)
+    return 0
+
+
+def _drain(counts: dict, state_lock: threading.Lock,
+           deadline_s: float = 30.0) -> None:
+    """Wait until no request has been in flight for 0.3 s (one zero can be
+    the instant between a finished request and the next), at most
+    ``deadline_s``."""
+    deadline = time.monotonic() + deadline_s
+    zero_since = None
+    while time.monotonic() < deadline:
+        with state_lock:
+            idle = counts["inflight"] == 0
+        if idle:
+            zero_since = zero_since or time.monotonic()
+            if time.monotonic() - zero_since > 0.3:
+                break
+        else:
+            zero_since = None
+        time.sleep(0.05)
+    with state_lock:
+        left = counts["inflight"]
+    print(f"shutdown signal: drain deadline expired with {left} request(s) "
+          f"still in flight" if left else
+          "shutdown signal: in-flight requests drained", file=sys.stderr)
 
 
 def serve_config(args: argparse.Namespace,
                  cfg: Optional[Config] = None) -> Config:
     """The config a ``serve`` invocation runs: ``cfg`` (a checkpoint's) or
-    the named config, with the generation shape and the first-conv kernel
-    flag from the command line."""
+    the named config, with the generation shape, the first-conv kernel
+    flag and the MIDI ingestion flags from the command line."""
     cfg = get_config(args.config) if cfg is None else cfg
     model = cfg.model
     if args.use_pallas_conv1:
         model = dataclasses.replace(model, use_pallas_conv1=True)
-    return cfg.replace(model=model, gen=GenSpec(
+    cfg = cfg.replace(model=model, gen=GenSpec(
         num_bars=args.bars, num_samples=args.samples,
-        interpolate=args.interpolate, sample_mode=args.sample_mode))
+        interpolate=args.interpolate, sample_mode=args.sample_mode,
+        sample_temperature=args.sample_temperature))
+    return _apply_midi_overrides(cfg, args)
 
 
 def restore_checkpoint(ckpt_dir: str, device, cfg_fn=None):
@@ -215,20 +822,32 @@ def _checkpoint_model(args: argparse.Namespace, cfg_fn,
     return cfg, model
 
 
-def cmd_serve(args: argparse.Namespace) -> int:
-    later = [f"--{f.replace('_', '-')}" for f in _LATER_FLAGS
-             if getattr(args, f) not in (None, False)]
-    if later:
-        print(f"error: {', '.join(later)} not in the PyTorch port yet "
-              "(see ROADMAP.md)", file=sys.stderr)
-        return 2
+def _serve_flag_error(args: argparse.Namespace) -> Optional[str]:
+    """The first flag combination ``serve`` refuses, before any restore."""
+    if args.coalesce < 1:
+        return "--coalesce must be >= 1"
+    if args.coalesce > 1 and args.pipeline:
+        return ("--pipeline and --coalesce are mutually exclusive "
+                "(coalescing already overlaps host encode with the next "
+                "batch's device sweep)")
     if args.ema and args.ckpt_dir is None:
-        print("error: --ema serves a checkpoint's EMA weights; give "
-              "--ckpt-dir", file=sys.stderr)
+        return "--ema serves a checkpoint's EMA weights; give --ckpt-dir"
+    if args.reload_every > 0 and args.ckpt_dir is None:
+        return ("--reload-every polls a checkpoint directory for newer "
+                "steps; give --ckpt-dir")
+    return None
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    err = _serve_flag_error(args)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    step = 0
+    step, manager = 0, None
     if args.ckpt_dir is not None:
+        from musicvae_tpu_torch.checkpoints import io as ckpt_io
+
         cfg, state = restore_checkpoint(
             args.ckpt_dir, args.device,
             lambda c: serve_config(args, c))
@@ -238,6 +857,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
             if model is None:
                 return 2
         step = int(state.step)
+        manager = ckpt_io.make_manager(args.ckpt_dir)
         source = (f"{args.ckpt_dir} step {step}"
                   + (", EMA weights" if args.ema else ""))
     elif args.weights is not None:
@@ -251,12 +871,36 @@ def cmd_serve(args: argparse.Namespace) -> int:
         model = build_model(cfg, device=args.device, seed=args.init_seed)
         source = f"random init, seed {args.init_seed}"
     service = Service(cfg, model, step)
-    service.warm()
-    print(f"serving {cfg.name} ({source}) on {service.device}: "
-          f"{args.samples}x{args.bars} bars/request, ready in "
-          f"{time.perf_counter() - t0:.1f}s; reading JSON lines on stdin",
-          file=sys.stderr)
-    return serve_stream(service, sys.stdin, sys.stdout)
+    if manager is not None:
+        service.reload_once = _make_reload_once(manager, service,
+                                                use_ema=args.ema)
+    runner = None
+    if args.coalesce > 1:
+        runner = _CoalescedRunner(service, args.coalesce)
+        runner.warm()
+    else:
+        service.warm(seeded=args.warm_seed)
+    banner = (f"serving {cfg.name} ({source}) on {service.device}: "
+              f"{args.samples}x{args.bars} bars/request, ready in "
+              f"{time.perf_counter() - t0:.1f}s")
+    if runner is not None:
+        banner += f", coalescing up to {args.coalesce} requests/dispatch"
+    stop_reload = threading.Event()
+    if args.reload_every > 0:
+        _start_reload_watcher(args.reload_every, service.reload_once,
+                              stop_reload)
+    try:
+        if args.port is not None:
+            return serve_socket(service, args.host, args.port,
+                                args.max_requests, runner, banner)
+        print(f"{banner}; reading JSON lines on stdin", file=sys.stderr)
+        if runner is not None:
+            return serve_stream_coalesced(service, runner, sys.stdin,
+                                          sys.stdout)
+        return serve_stream(service, sys.stdin, sys.stdout,
+                            pipeline=args.pipeline)
+    finally:
+        stop_reload.set()
 
 
 # train flags of the JAX package that later slices of the port bring,
@@ -676,22 +1320,6 @@ def _load_gen_state(args: argparse.Namespace, gen: GenSpec, what: str):
     return cfg, build_model(cfg, device=args.device, seed=cfg.train.seed)
 
 
-def _make_packed_gen(gen):
-    """(dispatch, to_host) around a sweep function: ``dispatch`` packs the
-    sweep's bars to 1 bit a cell on the card (ops/pack.py), ``to_host``
-    pulls the packed bytes (1/8 of the bars) and unpacks them to uint8 on
-    the host."""
-    from musicvae_tpu_torch.ops.pack import pack_bits, unpack_bits_np
-
-    def dispatch(*a, **kw) -> torch.Tensor:
-        return pack_bits(gen(*a, **kw))
-
-    def to_host(packed: torch.Tensor) -> np.ndarray:
-        return unpack_bits_np(packed.cpu().numpy())
-
-    return dispatch, to_host
-
-
 def _seed_from_midi(cfg: Config, model: PianoRollVAE, path: str,
                     encode: bool, num_samples: int,
                     generator: torch.Generator):
@@ -781,9 +1409,9 @@ def cmd_generate(args: argparse.Namespace) -> int:
         # B's encoded posterior pins the slerp END; B's seed bar is
         # discarded — the sweep starts from A's material
         kw["z1"] = kw_b["z0"]
-    dispatch, to_host = _make_packed_gen(make_generate_fn(cfg, model))
+    sweep = make_generate_fn(cfg, model)
     t0 = time.perf_counter()
-    packed = dispatch(gen, **kw)
+    packed = pack_bits(sweep(gen, **kw))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
@@ -820,8 +1448,8 @@ def cmd_eval_gen(args: argparse.Namespace) -> int:
         return 2
     cfg, model = loaded
     dev = next(model.parameters()).device
-    dispatch, to_host = _make_packed_gen(make_generate_fn(cfg, model))
-    bars = to_host(dispatch(torch.Generator(dev).manual_seed(args.seed)))
+    bars = to_host(pack_bits(make_generate_fn(cfg, model)(
+        torch.Generator(dev).manual_seed(args.seed))))
     gstats = bar_stats(bars)
     result = {"samples": int(bars.shape[0]),
               "bars_per_sample": int(bars.shape[1]),
@@ -970,6 +1598,92 @@ def cmd_describe(args: argparse.Namespace) -> int:
     return 0
 
 
+def _read_torch_state_dict(args: argparse.Namespace) -> dict:
+    """The state dict of --from-torch (a bare state dict, or a
+    reference-style {'model': state_dict, ...} bundle) or of
+    --from-safetensors."""
+    from musicvae_tpu_torch.checkpoints import safetensors_io
+
+    if args.from_safetensors:
+        return safetensors_io.load_file(args.from_safetensors)[0]
+    sd = torch.load(args.from_torch, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model" in sd \
+            and not any("." in k for k in sd):
+        sd = sd["model"]
+    return sd
+
+
+def cmd_convert(args: argparse.Namespace) -> int:
+    """Weights between the port's checkpoints and torch or safetensors
+    files, one direction an invocation:
+
+      convert --from-torch model.pt --config c2_gru_4bar --out ckpt_dir
+      convert --to-torch ckpt_dir --out model.pt
+      convert --from-safetensors model.safetensors --config ... --out dir
+      convert --to-safetensors ckpt_dir --out model.safetensors
+
+    The files use the torch oracle's tensor names, as the JAX package's
+    do: one naming, three formats. An import is checked against --config
+    before anything is written (checkpoints/convert.py
+    ``canonical_state_dict``) and becomes the port's checkpoint format
+    with a fresh optimizer at --step; optimizer moments do not convert. A
+    JAX (Orbax) checkpoint comes in through import_orbax_checkpoint.py,
+    and an export goes to Orbax through the JAX package's own ``convert
+    --from-torch``."""
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.checkpoints import safetensors_io
+    from musicvae_tpu_torch.checkpoints.convert import (StateDictMismatch,
+                                                        canonical_state_dict)
+    from musicvae_tpu_torch.train.trainer import init_state
+
+    sources = [args.from_torch, args.to_torch, args.from_safetensors,
+               args.to_safetensors]
+    if sum(bool(s) for s in sources) != 1:
+        print("error: convert needs exactly one of --from-torch / "
+              "--to-torch / --from-safetensors / --to-safetensors",
+              file=sys.stderr)
+        return 2
+    if args.from_torch or args.from_safetensors:
+        src = args.from_torch or args.from_safetensors
+        cfg = _apply_midi_overrides(get_config(args.config), args)
+        try:
+            sd = canonical_state_dict(_read_torch_state_dict(args), cfg)
+        except StateDictMismatch as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        model = build_model(cfg, device=args.device)
+        model.load_state_dict(sd, strict=True)
+        state = init_state(cfg, model)
+        state.step.fill_(args.step)
+        manager = ckpt_io.make_manager(args.out, keep=1)
+        if not ckpt_io.save(manager, state, cfg, wait=True):
+            print(f"error: {args.out} already holds step "
+                  f"{manager.latest_step()} (not older than --step "
+                  f"{args.step})", file=sys.stderr)
+            return 2
+        n = sum(t.numel() for t in sd.values())
+        print(f"converted {src} -> {args.out} (config {cfg.name}, {n} "
+              f"params, step {args.step})")
+        return 0
+    ckpt = args.to_torch or args.to_safetensors
+    cfg, state = restore_checkpoint(
+        ckpt, args.device, lambda c: _apply_midi_overrides(c, args))
+    model = _ema_model(state) if args.ema else state.model
+    if model is None:
+        return 2
+    sd = canonical_state_dict(model.state_dict(), cfg)
+    step = int(state.step)
+    if args.to_torch:
+        torch.save(sd, args.out)
+    else:
+        safetensors_io.save_file(sd, args.out, metadata={
+            "config": cfg.name, "step": str(step),
+            "format": "musicvae_tpu/torch-names"})
+    print(f"converted {ckpt} (config {cfg.name}, step {step}) -> "
+          f"{args.out} ({len(sd)} tensors)")
+    return 0
+
+
 def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
@@ -1050,21 +1764,42 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--ema", action="store_true",
                    help="with --ckpt-dir: serve the EMA weights (requires "
                         "training with --ema-decay)")
+    _add_midi_flags(p)
     p.add_argument("--bars", type=int, default=16)
     p.add_argument("--samples", type=int, default=4)
     p.add_argument("--interpolate", action="store_true")
     p.add_argument("--sample-mode", choices=["threshold", "bernoulli"],
                    default="threshold")
+    p.add_argument("--sample-temperature", type=float, default=1.0,
+                   help="Bernoulli mode: sigmoid(logits/T) sharpening")
     p.add_argument("--use-pallas-conv1", action="store_true",
                    help="first encoder conv through the hand-written CUDA "
                         "kernel (ModelSpec.use_pallas_conv1)")
+    p.add_argument("--warm-seed", action="store_true",
+                   help="also run one seeded (seed_midi_b64) sweep at "
+                        "start-up")
+    p.add_argument("--pipeline", action="store_true",
+                   help="stdin, one sweep a request: when the next request "
+                        "is waiting, enqueue its sweep on the card before "
+                        "pulling and exporting the current one (depth 1)")
+    p.add_argument("--coalesce", type=int, default=1,
+                   help="dynamic batching width W: up to W queued requests "
+                        "run as one sweep at batch W x samples; a lone "
+                        "request runs alone. 1 = off")
+    p.add_argument("--port", type=int, default=None,
+                   help="serve the same protocol over TCP instead of stdin, "
+                        "a thread a connection (0 = a free port, announced "
+                        "on stderr)")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address for --port (default loopback)")
+    p.add_argument("--max-requests", type=int, default=0,
+                   help="with --port: stop after N requests (0 = serve "
+                        "until interrupted)")
+    p.add_argument("--reload-every", type=float, default=0.0,
+                   help="with --ckpt-dir: poll the directory every SECS "
+                        "seconds and swap a newer step's weights into the "
+                        "running service. 0 = off")
     _add_device(p)
-    for flag in ("port", "coalesce", "reload_every"):
-        p.add_argument(f"--{flag.replace('_', '-')}", default=None,
-                       help="not in the PyTorch port yet")
-    for flag in ("pipeline", "warm_seed"):
-        p.add_argument(f"--{flag.replace('_', '-')}", action="store_true",
-                       help="not in the PyTorch port yet")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("train", help="train a config")
@@ -1206,6 +1941,35 @@ def make_parser() -> argparse.ArgumentParser:
                         "(requires training with --ema-decay)")
     _add_device(p)
     p.set_defaults(fn=cmd_reconstruct)
+
+    p = sub.add_parser("convert",
+                       help="weights between the port's checkpoints and "
+                            "torch / safetensors files")
+    p.add_argument("--config", default="c2_gru_4bar",
+                   help="--from-*: the config the weights are for")
+    _add_midi_flags(p)
+    p.add_argument("--from-torch", default=None, metavar="PT",
+                   help="torch state dict (or {'model': ...} bundle) to "
+                        "import as a checkpoint into --out")
+    p.add_argument("--to-torch", default=None, metavar="CKPT_DIR",
+                   help="checkpoint directory to export as a torch state "
+                        "dict at --out")
+    p.add_argument("--from-safetensors", default=None, metavar="ST",
+                   help="safetensors file to import (the torch export's "
+                        "tensor names) as a checkpoint into --out")
+    p.add_argument("--to-safetensors", default=None, metavar="CKPT_DIR",
+                   help="checkpoint directory to export as a safetensors "
+                        "file at --out (config and step in its metadata)")
+    p.add_argument("--out", required=True,
+                   help="destination: a checkpoint directory for --from-*, "
+                        "a file for --to-*")
+    p.add_argument("--ema", action="store_true",
+                   help="--to-*: export the EMA weights (requires training "
+                        "with --ema-decay)")
+    p.add_argument("--step", type=int, default=0,
+                   help="--from-*: the step of the written checkpoint")
+    _add_device(p)
+    p.set_defaults(fn=cmd_convert)
 
     p = sub.add_parser("describe",
                        help="inspect a checkpoint directory (config, "

@@ -16,7 +16,7 @@ core are later slices: they raise ``NotImplementedError``.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -178,7 +178,8 @@ class PianoRollVAE(BarDecoder):
 
     def generate(self, z_bars: torch.Tensor, reset: torch.Tensor,
                  seed_bar: Optional[torch.Tensor] = None,
-                 uniforms: Union[torch.Tensor, torch.Generator, None] = None,
+                 uniforms: Union[torch.Tensor, torch.Generator,
+                                 Sequence[torch.Generator], None] = None,
                  sample_temperature: float = 1.0):
         """Closed-loop generation: z_bars [B,N,z] per-bar latent path, reset
         [B,N] (1.0 at phrase starts), seed_bar [B,T,P] (the first prev-bar
@@ -189,7 +190,9 @@ class PianoRollVAE(BarDecoder):
         each bar is a Bernoulli sample at ``sample_temperature`` from the
         U[0,1) draws ``uniforms[:, k]`` ([B,N,T,P]), or from draws of
         ``uniforms`` itself, a generator on the model's device, made bar
-        by bar."""
+        by bar. A sequence of W generators splits the batch into W equal
+        slots (coalesced requests): each bar, slot i's rows are drawn from
+        generator i, as a lone sweep of B/W rows would draw them."""
         b, n = z_bars.shape[:2]
         t, p = self.midi.steps_per_bar, self.midi.num_pitches
         prev = (seed_bar.to(torch.uint8) if seed_bar is not None else
@@ -197,11 +200,20 @@ class PianoRollVAE(BarDecoder):
                             device=z_bars.device))
         h = torch.zeros(b, self.spec.gru_hidden, dtype=self.compute_dtype,
                         device=z_bars.device)
+        gens = None
+        if isinstance(uniforms, torch.Generator):
+            gens = [uniforms]
+        elif isinstance(uniforms, (list, tuple)):
+            gens = list(uniforms)
+            if b % len(gens):
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{len(gens)} equal slots")
         all_logits, bars = [], []
         for k in range(n):
-            if isinstance(uniforms, torch.Generator):
-                u = torch.rand((b, t, p), generator=uniforms,
-                               device=uniforms.device)
+            if gens is not None:
+                draws = [torch.rand((b // len(gens), t, p), generator=g,
+                                    device=g.device) for g in gens]
+                u = draws[0] if len(draws) == 1 else torch.cat(draws)
             else:
                 u = None if uniforms is None else uniforms[:, k]
             h, logits, prev = self.step(h, prev, z_bars[:, k], reset[:, k],

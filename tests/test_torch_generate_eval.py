@@ -196,8 +196,8 @@ def test_serve_bars_equal_generate_fn():
 @pytest.mark.parametrize("req,match", [
     ("{not json", "JSONDecodeError"),
     ('{"id": 5, "cmd": "nope"}', "unknown cmd"),
-    ('{"id": 5, "cmd": "reload"}', "not in the PyTorch port yet"),
-    ('{"id": 5, "seed_midi_b64": "TVRoZA=="}', "not in the PyTorch port"),
+    ('{"id": 5, "cmd": "reload"}', "reload needs a checkpoint directory"),
+    ('{"id": 5, "seed_midi_b64": "TVRoZA=="}', "SMFError"),
     ('[1, 2]', "JSON object"),
 ])
 def test_serve_errors_in_band(req, match):
@@ -209,10 +209,46 @@ def test_serve_errors_in_band(req, match):
     assert ok["id"] == 6 and "midi_b64" in ok
 
 
-@pytest.mark.parametrize("argv", [
-    ["--port", "0"], ["--coalesce", "4"], ["--reload-every", "5"],
-    ["--pipeline"],
+@pytest.mark.parametrize("argv,match", [
+    (["--coalesce", "0"], "--coalesce must be >= 1"),
+    (["--pipeline", "--coalesce", "2"], "mutually exclusive"),
+    (["--reload-every", "5"], "give --ckpt-dir"),
 ])
-def test_serve_later_flags_refused(argv, capsys):
+def test_serve_flag_errors(argv, match, capsys):
+    """Flag combinations serve refuses with exit 2, before any model is
+    built (the JAX package's checks, and --reload-every with nothing to
+    poll)."""
     assert main(["serve", "--device", "cpu", *argv]) == 2
-    assert "not in the PyTorch port yet" in capsys.readouterr().err
+    assert match in capsys.readouterr().err
+
+
+def test_serve_port_max_requests(capsys, monkeypatch):
+    """``serve --port 0 --max-requests 1`` over random weights answers one
+    request from a client and exits 0."""
+    import threading
+
+    from musicvae_tpu_torch import cli
+    from musicvae_tpu_torch.client import ServeClient
+
+    bound, done, midis = {}, {}, []
+    real = cli.serve_socket
+
+    def serve_socket(*a, **kw):      # learn the port the server bound
+        ready = threading.Event()
+        kw["on_listen"] = lambda h, p: (bound.update(port=p), ready.set())
+        t = threading.Thread(target=lambda: done.update(
+            rc=real(*a, **kw)), daemon=True)
+        t.start()
+        assert ready.wait(60)
+        with ServeClient(port=bound["port"], timeout=60) as c:
+            midis.extend(c.generate(seed=5))
+        t.join(60)
+        assert not t.is_alive()
+        return done["rc"]
+
+    monkeypatch.setattr(cli, "serve_socket", serve_socket)
+    rc = main(["serve", "--device", "cpu", "--port", "0",
+                      "--max-requests", "1", "--bars", "1", "--samples",
+                      "1"])
+    assert rc == 0 and len(midis) == 1 and midis[0][:4] == b"MThd"
+    assert "served 1 requests, 0 errors" in capsys.readouterr().err
