@@ -58,7 +58,22 @@ check does not hold:
    (``stats`` shows it, later answers are the new weights'); req/s and
    p50/p99 latency for stdin serial, ``--pipeline`` and ``--coalesce 4``
    and TCP with 4 clients; ``convert --to-safetensors`` then
-   ``--from-safetensors`` serves the same bits.
+   ``--from-safetensors`` serves the same bits;
+11. kinds: the other parity kinds at full registered width, the first-conv
+   kernels on: c1_conv_bar (f32, batch 16), c3_hier_16bar (bf16, 128 x
+   16 bars) and c4_cond (bf16, 256 x 4 bars) each train 20 steps through
+   ``train()`` on a seeded resident cache with labels (K4 a step, K1/K1b
+   on each bar-feature conv or C1's encoder trunk, K2 an eval batch; the
+   loss must fall; c4_cond repeated bit for bit), then steps/s, launches
+   and kernel time a step and the device-busy share; f32 on the card
+   against the CPU; 4 x 16 bars generated; 8 serve requests serial and
+   ``--coalesce 4`` under the flip rule (c4_cond: half of them with chord
+   and key given, half drawn by the server); c3's ``generate --encode
+   --interp-midi-b`` morph; convert to safetensors and back serves the
+   same bits. Then c5_gen_sweep's registered 1,024 x 64-bar interpolation
+   sweep once (4 samples to MIDI), and K1, K1b, K2 and K4 at the kinds'
+   shapes (M = 2,048, 1,024 and C1's f32 M = 16; n = 25.2 M and 12.6 M)
+   against their plain versions, timed beside their bounds.
 
 The last lines are a "details:" JSON line with every check and timing,
 the card's name and power limit, the kernels JSON object, and
@@ -1153,32 +1168,44 @@ def kernel_checks(seed: int, dev: torch.device):
     return entries, details
 
 
-def reference_check(seed: int, dev: torch.device):
-    """Full-width c2 in f32 with the first-conv kernel: the card against
-    the CPU on the same weights and inputs (the CPU runs the kernels'
-    plain versions)."""
+def reference_check(seed: int, dev: torch.device,
+                    name: str = "c2_gru_4bar") -> dict:
+    """The config ``name`` at full width in f32 with the first-conv kernel:
+    the card against the CPU on the same weights and 2 examples (the CPU
+    runs the kernels' plain versions, the path the CPU tests hold against
+    the JAX package), every latent level and the logits: logits within
+    1e-3, latents within 1e-4."""
     from musicvae_tpu_torch.config import get_config
-    from musicvae_tpu_torch.models.vae import build_model
+    from musicvae_tpu_torch.models.vae import build_model, draw_eps
 
-    cfg = get_config("c2_gru_4bar")
+    cfg = get_config(name)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, dtype="float32", use_pallas_conv1=True))
     gpu = build_model(cfg, device=dev, seed=seed)
     cpu = build_model(cfg, device="cpu", seed=seed)
     rng = np.random.default_rng(seed)
-    x = torch.tensor((rng.random((2, 4, 96, 128)) < 0.05).astype(np.uint8))
-    eps = torch.tensor(rng.standard_normal((2, 128)).astype(np.float32))
+    n = cfg.model.num_bars
+    x = torch.tensor((rng.random((2, n, 96, 128)) < 0.05).astype(np.uint8))
+    eps = draw_eps(cfg.model, 2, torch.Generator().manual_seed(seed))
+    labels = {}
+    if cfg.model.kind == "cond":
+        labels = {"chord": torch.tensor(rng.integers(0, 24, (2, n))),
+                  "key_sig": torch.tensor(rng.integers(0, 24, (2,)))}
     with torch.inference_mode():
-        lg, [(mu_g, _)] = gpu(x.to(dev), eps.to(dev))
-        lc, [(mu_c, _)] = cpu(x, eps)
+        lg, lat_g = gpu(x.to(dev), tuple(e.to(dev) for e in eps),
+                        **{k: v.to(dev) for k, v in labels.items()})
+        lc, lat_c = cpu(x, eps, **labels)
     err = float((lg.cpu() - lc).abs().max())
-    mu_err = float((mu_g.cpu() - mu_c).abs().max())
-    log(f"reference: f32 c2 forward card vs CPU: logits max abs diff "
-        f"{err:.3e}, mu {mu_err:.3e}")
-    check(bool(torch.isfinite(lg).all()), "non-finite logits")
-    check(err <= 1e-3 and mu_err <= 1e-4,
-          f"card and CPU disagree: logits {err}, mu {mu_err}")
-    return {"logits_max_abs_diff": err, "mu_max_abs_diff": mu_err}
+    lat_err = max(float((a.cpu() - b).abs().max())
+                  for pair_g, pair_c in zip(lat_g, lat_c)
+                  for a, b in zip(pair_g, pair_c))
+    log(f"reference: f32 {name} forward card vs CPU: logits max abs diff "
+        f"{err:.3e}, latents {lat_err:.3e}")
+    check(bool(torch.isfinite(lg).all()), f"{name}: non-finite logits")
+    check(err <= 1e-3 and lat_err <= 1e-4,
+          f"{name}: card and CPU disagree: logits {err}, latents {lat_err}")
+    return {"logits_max_abs_diff": err, "latents_max_abs_diff": lat_err,
+            "levels": len(lat_g)}
 
 
 def serve_phase(seed: int, dev: torch.device):
@@ -2554,6 +2581,531 @@ def serve_stack_phase(seed: int, dev: torch.device, card: str):
     return runs, out
 
 
+KIND_NAMES = ("c1_conv_bar", "c3_hier_16bar", "c4_cond")
+KIND_STEPS = 20
+KIND_K = 5
+KIND_DISPATCHES = 3      # timed dispatches of KIND_K steps a kind
+KIND_REQUESTS = 8        # serve requests a kind, serial and --coalesce 4
+SWEEP_MIDIS = 4          # c5_gen_sweep samples exported to MIDI
+
+
+def _kind_config(name: str, seed: int):
+    """The registered config with the first-conv kernels on, 20 steps in
+    5-step dispatches and an eval every 10 (one batch)."""
+    from musicvae_tpu_torch.config import get_config
+
+    base = get_config(name)
+    return base.replace(
+        model=dataclasses.replace(base.model, use_pallas_conv1=True),
+        train=dataclasses.replace(
+            base.train, num_steps=KIND_STEPS, log_every=KIND_K,
+            eval_every=10, eval_batches=1, seed=seed))
+
+
+def _kind_cache(seed: int, num_bars: int):
+    """``make_bar_cache`` with windows of ``num_bars`` and seeded chord
+    (per window) and key (per piece) classes."""
+    from musicvae_tpu_torch.data.dataset import PianoRollDataset
+
+    ds = make_bar_cache(seed, num_bars=num_bars)
+    rng = np.random.default_rng((seed, 9))
+    keys = rng.integers(0, 24, ds.piece_ids.max() + 1)[ds.piece_ids]
+    return PianoRollDataset(ds.bars, ds.starts, num_bars,
+                            rng.integers(0, 24, len(ds)), keys,
+                            ds.piece_ids, grid=(24, 4, 0))
+
+
+def _kind_reference(cfg, model, dev, payload):
+    """(bars, σ) of the lone sweep of a prepared serve request (generator,
+    seed bar, chord, key), through the sampler's draws and the model's own
+    ``generate``: the reference of the flip rule."""
+    from musicvae_tpu_torch.generate import sampler
+
+    gen, sb, chord, key_sig = payload
+    g, b = cfg.gen, cfg.gen.num_samples
+    if sb is not None:
+        sb = torch.from_numpy(sb).to(dev)[None].repeat(b, 1, 1)
+    if chord is not None:
+        chord = torch.from_numpy(chord).to(dev)
+        key_sig = torch.from_numpy(key_sig).to(dev)
+    with torch.inference_mode():
+        noise, chord, key_sig, zp = sampler.sweep_draws(
+            cfg, b, gen, dev, chord=chord, key_sig=key_sig)
+        z, reset = sampler.latent_path(cfg, b, g.num_bars, g.interpolate,
+                                       g.temperature, noise=noise)
+        logits, bars = model.generate(z, reset, sb, chord=chord,
+                                      key_sig=key_sig, z_phrase=zp)
+    return bars.cpu().numpy(), torch.sigmoid(logits.float()).cpu().numpy()
+
+
+def _kind_requests(name: str, seed: int):
+    """KIND_REQUESTS request lines; for cond, even ids pin chord and key
+    and odd ids leave them to the server's draws."""
+    reqs = []
+    for i in range(KIND_REQUESTS):
+        r = {"id": i, "seed": seed * 1000 + 700 + i}
+        if name == "c4_cond" and i % 2 == 0:
+            r.update(chord=(3 * i) % 24, key=(5 * i + 1) % 24)
+        reqs.append(r)
+    return reqs
+
+
+def _kind_train(cfg, train_ds, eval_ds, dev):
+    """One ``train()`` run of KIND_STEPS steps: (model, state, logged,
+    launches, seconds with start-up)."""
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.train import trainer
+
+    logged = []
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, state, _ = trainer.train(
+        cfg, train_ds, num_steps=KIND_STEPS, eval_data=eval_ds,
+        log_fn=lambda s, m: logged.append((s, m)), device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(int(state.step) == KIND_STEPS, f"state.step {int(state.step)}")
+    return model, state, logged, dict(_kernels.LAUNCHES), dt
+
+
+def _kind_timing(cfg, state, train_ds, dev, seed: int) -> dict:
+    """Steps/s by host clock over KIND_DISPATCHES dispatches of KIND_K
+    steps (no host wait inside: sync debug mode "error"), then one
+    dispatch's kernels from torch.profiler: launches and device time a
+    step, and the device-busy share (device time over host time)."""
+    from musicvae_tpu_torch.train import trainer
+
+    data_dev = {"bars": torch.from_numpy(train_ds.bars).to(dev),
+                "starts": torch.from_numpy(train_ds.starts).to(dev)}
+    if cfg.model.kind == "cond":
+        data_dev["chords"] = torch.from_numpy(train_ds.chords).to(dev)
+        data_dev["keys"] = torch.from_numpy(train_ds.keys).to(dev)
+    b = cfg.train.batch_size
+    ids = trainer.make_id_schedule(seed, len(train_ds), b)
+    idxs = [torch.from_numpy(np.stack([ids(d * KIND_K + j)
+                                       for j in range(KIND_K)])).to(dev)
+            for d in range(KIND_DISPATCHES + 1)]
+    multi = trainer.make_train_step_indexed_multi(cfg, state.model)
+    with trainer.deterministic_algorithms():
+        multi(state, data_dev, idxs[0])                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            for d in range(1, KIND_DISPATCHES + 1):
+                state, m = multi(state, data_dev, idxs[d])
+            enqueue = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        kernels, kernel_ms = profiled_kernels(
+            lambda: multi(state, data_dev, idxs[0]))
+    steps = KIND_DISPATCHES * KIND_K
+    out = {"steps_per_s": steps / host,
+           "host_ms_per_step": host / steps * 1e3,
+           "enqueue_ms_per_step": enqueue / steps * 1e3,
+           "device_ms_per_step": kernel_ms / KIND_K,
+           "kernels_per_step": kernels / KIND_K,
+           "loss": float(m["loss"])}
+    out["device_busy_share"] = (out["device_ms_per_step"]
+                                / out["host_ms_per_step"])
+    check(np.isfinite(out["loss"]), f"timed dispatches: loss {out['loss']}")
+    return out
+
+
+def _kind_serve(name, cfg, model, dev, seed) -> dict:
+    """KIND_REQUESTS requests through stdin serial serving and --coalesce
+    4: serial answers equal the lone sweep's bars exactly, coalesced ones
+    agree under the flip rule; req/s by host clock for each."""
+    from musicvae_tpu_torch import cli
+
+    thr = cfg.midi.binarize_threshold
+    svc = cli.Service(cfg, model)
+    runner = cli._CoalescedRunner(svc, STACK_W)
+    svc.warm()
+    runner.warm()
+    reqs = _kind_requests(name, seed)
+    lines = "".join(json.dumps(r) + "\n" for r in reqs)
+    refs = [_kind_reference(cfg, model, dev, svc.prepare(json.dumps(r))[2])
+            for r in reqs]
+    got, timing = {}, {}
+    for mode, fn in (("serial", lambda i, o: cli.serve_stream(svc, i, o)),
+                     ("coalesce4", lambda i, o: cli.serve_stream_coalesced(
+                         svc, runner, i, o))):
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(io.StringIO(lines), out)
+        dt = time.perf_counter() - t0
+        resp = [json.loads(ln) for ln in out.getvalue().splitlines()]
+        check([r.get("id") for r in resp] == [r["id"] for r in reqs]
+              and all("midi_b64" in r for r in resp),
+              f"{name} serve {mode}: {[r.get('error') for r in resp]}")
+        got[mode] = [_midi_bars(r["midi_b64"], cfg) for r in resp]
+        timing[mode] = _load_stats([r["latency_ms"] for r in resp],
+                                   len(resp), dt, float(np.mean(
+                                       [r["density"] for r in resp])))
+    check(all(np.array_equal(a, r[0]) for a, r in zip(got["serial"], refs)),
+          f"{name}: serial serving differs from the lone sweep")
+    agree = _agree(got["coalesce4"], refs, thr)
+    if name == "c4_cond":       # the pinned labels reach the music
+        check(not np.array_equal(got["serial"][0], got["serial"][2]),
+              "cond: two requests with other labels gave the same bars")
+    return {"timing": timing, "coalesce_vs_serial": agree}
+
+
+def _kind_convert(name, cfg, ck, root, seed) -> dict:
+    """``convert --to-safetensors`` then ``--from-safetensors``; the
+    converted checkpoint serves the original's bits."""
+    st = os.path.join(root, f"{name}.safetensors")
+    ck2 = os.path.join(root, f"{name}_converted")
+    t0 = time.perf_counter()
+    rc, _, e = _cli(["convert", "--to-safetensors", ck, "--out", st])
+    check(rc == 0, f"{name} convert --to-safetensors: {e[-2000:]}")
+    rc, _, e = _cli(["convert", "--from-safetensors", st, "--config", name,
+                     "--out", ck2, "--step", KIND_STEPS])
+    check(rc == 0, f"{name} convert --from-safetensors: {e[-2000:]}")
+    convert_ms = (time.perf_counter() - t0) * 1e3
+    lines = "".join(json.dumps(r) + "\n"
+                    for r in _kind_requests(name, seed)[:2])
+    served = {}
+    for which, extra in (("original", ["--ckpt-dir", ck]),
+                         ("converted", ["--ckpt-dir", ck2,
+                                        "--use-pallas-conv1"])):
+        rc, o, e = _cli(["serve", *extra, "--bars", GEN_BARS, "--samples",
+                         GEN_SAMPLES], stdin=lines)
+        check(rc == 0, f"{name} serve {which}: {e[-2000:]}")
+        served[which] = [r["midi_b64"] for r in map(json.loads,
+                                                      o.splitlines())]
+    out = {"ms": convert_ms, "bytes": os.path.getsize(st),
+           "same_bits": served["original"] == served["converted"]}
+    check(out["same_bits"], f"{name}: the converted checkpoint serves "
+                            f"other bits")
+    return out
+
+
+def _kinds_kernel_shapes(seed: int, dev: torch.device, card: str) -> dict:
+    """K1, K1b, K2 and K4 at the kinds' train and eval shapes, each against
+    its plain version on the same inputs (the kernel phase's tolerances),
+    then timed from a cold L2 beside its bound, its plain version and one
+    library call. K4's sum must give the same bits on a second call at
+    25.2 M logits (its fixed-order finish over SUM_MAX_BLOCKS partials).
+    Returns {kernel: [shape rows]}."""
+    import torch.nn.functional as F
+
+    from musicvae_tpu_torch.ops import conv1, fused_elbo, losses
+
+    g = torch.Generator(dev).manual_seed(seed + 90)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    c = 16
+    w = torch.randn((3, 3, c), generator=g, device=dev) / 3.0
+    b = 0.1 * torch.randn(c, generator=g, device=dev)
+    rows = {"first_conv_s2": [], "first_conv_s2_bwd": [],
+            "masked_bce_sum": [], "masked_bce_sum_dual": []}
+
+    def row(kernel, label, err, ms, plain, lib, nbytes, ops, **extra):
+        bms, by = bound_ms(nbytes, ops)
+        r = {"name": f"{kernel} ({label})", "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+             "bound_by": by, "bound_share": bms / ms, **extra}
+        rows[kernel].append(r)
+        log(f"kinds kernel {r['name']} ({card}): kernel {ms * 1e3:.2f} us, "
+            f"plain {plain * 1e3:.2f} us, library "
+            f"{'none' if lib is None else f'{lib * 1e3:.2f} us'}, bound "
+            f"{bms * 1e3:.2f} us ({by}, share {bms / ms:.3f}), max abs "
+            f"err {err:.3e}")
+
+    for label, m, out_dtype in (("C3 train, M=2048", 2048, torch.bfloat16),
+                                ("C4 train, M=1024", 1024, torch.bfloat16),
+                                ("C1 train, M=16, f32", 16, torch.float32)):
+        x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.05
+             ).to(torch.uint8)
+        got = conv1.first_conv_s2(x, w, b, True, out_dtype).float()
+        ref = conv1.first_conv_s2_ref(x, w, b, True, out_dtype).float()
+        tol = 1e-5 if out_dtype == torch.float32 else 1e-2
+        diff = (got - ref).abs()
+        check(bool((diff <= tol + tol * ref.abs()).all()),
+              f"K1 at {label} disagrees: {float(diff.max())}")
+        osize = 4 if out_dtype == torch.float32 else 2
+        outs = m * 48 * 64 * c
+        lib_w = w.permute(2, 0, 1)[:, None].to(out_dtype).contiguous()
+        x_nchw = x[:, None].to(out_dtype)
+        row("first_conv_s2", label, float(diff.max()),
+            time_ms(lambda: conv1.first_conv_s2(x, w, b, True, out_dtype),
+                    flush),
+            time_ms(lambda: conv1.first_conv_s2_ref(x, w, b, True,
+                                                    out_dtype), flush),
+            time_ms(lambda: F.gelu(F.conv2d(x_nchw, lib_w, b.to(out_dtype),
+                                            stride=2, padding=1),
+                                   approximate="tanh"), flush),
+            x.numel() + 4 * (w.numel() + b.numel()) + osize * outs,
+            outs * (2 * 9 + 1 + 8))
+        dy = torch.randn((m, 48, 64, c), generator=g, device=dev
+                         ).to(out_dtype)
+        wl, bl = w.clone().requires_grad_(True), b.clone().requires_grad_(
+            True)
+        dw, db = torch.autograd.grad(
+            conv1.first_conv_s2(x, wl, bl, True, out_dtype), (wl, bl), dy)
+        rw, rb = conv1.first_conv_s2_bwd_ref(x, w, b, dy, True)
+        errs = [float((a - r).abs().max()) for a, r in ((dw, rw), (db, rb))]
+        check(all(bool(((a - r).abs() <= 1e-3 + 1e-3 * r.abs()).all())
+                  for a, r in ((dw, rw), (db, rb))),
+              f"K1b at {label} disagrees: {errs}")
+        z_nchw = F.conv2d(x_nchw, lib_w, b.to(out_dtype), stride=2,
+                          padding=1)
+        dy_nchw = dy.permute(0, 3, 1, 2)
+
+        def k1b_library():
+            dz = torch.ops.aten.gelu_backward(dy_nchw, z_nchw,
+                                              approximate="tanh")
+            return torch.ops.aten.convolution_backward(
+                dz, x_nchw, lib_w, [c], [2, 2], [1, 1], [1, 1], False,
+                [0, 0], 1, [False, True, True])
+
+        row("first_conv_s2_bwd", label, max(errs),
+            time_ms(lambda: conv1._backward(x, w, b, dy, True), flush),
+            time_ms(lambda: conv1.first_conv_s2_bwd_ref(x, w, b, dy, True),
+                    flush),
+            time_ms(k1b_library, flush),
+            x.numel() + osize * dy.numel() + 4 * 2 * (w.numel() + b.numel()),
+            dy.numel() * (2 * 9 + 2 * 9 + 12))
+
+    full = torch.ones(128, device=dev)
+    for label, shape, kernels in (
+            ("C3 train, [128,16,96,128]", (128, 16, 96, 128),
+             ("masked_bce_sum_dual",)),
+            ("C4 train, [256,4,96,128]", (256, 4, 96, 128),
+             ("masked_bce_sum_dual",)),
+            ("C3 eval, [128,16,96,128]", (128, 16, 96, 128),
+             ("masked_bce_sum",))):
+        logits = 3.0 * torch.randn(shape, generator=g, device=dev)
+        xb = torch.rand(shape, generator=g, device=dev) < 0.05
+        xu8, xf = xb.to(torch.uint8), xb.to(torch.float32)
+        n = logits.numel()
+        with torch.no_grad():
+            ref = losses.masked_bce_sum(logits, xu8, full)
+        for kernel in kernels:
+            dual = kernel == "masked_bce_sum_dual"
+            with torch.no_grad():
+                s1, tile = fused_elbo._bce_sum(logits, xu8, full, dual)
+                s2, _ = fused_elbo._bce_sum(logits, xu8, full, dual)
+            rel = abs(float(s1) - float(ref)) / abs(float(ref))
+            check(rel <= 1e-5, f"{kernel} at {label}: rel {rel:.2e}")
+            check(bool(torch.equal(s1, s2)),
+                  f"{kernel} at {label}: two calls gave other bits")
+            err = abs(float(s1) - float(ref))
+            extra = {"n": n, "rel_err": rel, "same_bits_twice": True}
+            if dual:
+                want = fused_elbo.bce_grad_tile_plain(logits, xu8, full)
+                terr = float((tile - want).abs().max())
+                check(terr <= 1e-6, f"K4 tile at {label}: {terr}")
+                extra["tile_max_abs_err"] = terr
+                leaf = logits.clone().requires_grad_(True)
+
+                def plain():
+                    total = losses.masked_bce_sum(leaf, xu8, full)
+                    return total, torch.autograd.grad(total, leaf)
+
+                def library():
+                    total = F.binary_cross_entropy_with_logits(
+                        leaf, xf, weight=full, reduction="sum")
+                    return total, torch.autograd.grad(total, leaf)
+
+                row(kernel, label, err,
+                    time_ms(lambda: fused_elbo._bce_sum(logits, xu8, full,
+                                                        True), flush),
+                    time_ms(plain, flush), time_ms(library, flush),
+                    4 * n + n + 4 * n + 4 * 128 + 4, 15 * n, **extra)
+            else:
+                with torch.no_grad():
+                    row(kernel, label, err,
+                        time_ms(lambda: fused_elbo.masked_bce_sum(
+                            logits, xu8, full), flush),
+                        time_ms(lambda: losses.masked_bce_sum(
+                            logits, xu8, full), flush),
+                        time_ms(lambda: F.binary_cross_entropy_with_logits(
+                            logits, xf, weight=full, reduction="sum"),
+                            flush),
+                        4 * n + n + 4 * 128 + 4, 9 * n, **extra)
+        del logits, xb, xu8, xf
+    return rows
+
+
+def kinds_phase(seed: int, dev: torch.device, card: str):
+    """The other parity kinds at full registered width on the card, each
+    with the first-conv kernels on: c1_conv_bar (f32, batch 16),
+    c3_hier_16bar (bf16, 128 x 16 bars), c4_cond (bf16, 256 x 4 bars, the
+    global batch on one card). Per kind: (a) 20 steps through ``train()``
+    on a seeded resident cache with labels, an eval every 10 (K4 a step,
+    K1/K1b on the encoder trunk or both bar-feature convs, K2 an eval
+    batch), the loss finite and falling, c4_cond repeated bit for bit;
+    (b) steps/s, launches and kernel time a step, device-busy share; (c)
+    f32 on the card against the CPU; (d) 4 x 16 bars generated, 8 serve
+    requests serial and --coalesce 4 under the flip rule (cond: half with
+    labels given, half drawn), c3's ``generate --encode --interp-midi-b``
+    morph; (e) convert to safetensors and back serves the same bits. Then
+    c5_gen_sweep's registered 1,024 x 64-bar interpolation sweep once (4
+    samples to MIDI), and K1, K1b, K2, K4 at the kinds' shapes against
+    their plain versions and timed. Launch counts are read around each
+    kind's train, generate and serve, and around the sweep."""
+    import shutil
+    import tempfile
+
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.config import GenSpec, get_config
+    from musicvae_tpu_torch.data.synthetic import synth_corpus
+    from musicvae_tpu_torch.generate import sampler
+    from musicvae_tpu_torch.models.vae import build_model
+    from musicvae_tpu_torch.ops import _kernels
+
+    _kernels.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="kinds_smoke_",
+                            dir=_kernels.BUILD_ROOT.parent)
+    out, total = {"card": card}, {k: 0 for k in _kernels.LAUNCHES}
+    t_phase = time.perf_counter()
+
+    def counted(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    try:
+        midis = []
+        for i, (data, _, _) in enumerate(synth_corpus(2, 16, seed=seed)):
+            midis.append(os.path.join(root, f"m{i}.mid"))
+            with open(midis[-1], "wb") as f:
+                f.write(data)
+        for name in KIND_NAMES:
+            t_kind = time.perf_counter()
+            cfg = _kind_config(name, seed)
+            nb = cfg.model.num_bars
+            train_ds, eval_ds = _kind_cache(seed, nb).split(0.1, seed=seed)
+            res = {"windows": len(train_ds), "batch": cfg.train.batch_size,
+                   "num_bars": nb, "dtype": cfg.model.dtype}
+            model, state, logged, launches, dt = _kind_train(
+                cfg, train_ds, eval_ds, dev)
+            counted(launches)
+            steps = [m for _, m in logged if "loss" in m]
+            evals = [m for _, m in logged if "eval_loss" in m]
+            losses_ = [m["loss"] for m in steps]
+            convs = 1 if name == "c1_conv_bar" else 2
+            check(len(steps) == KIND_STEPS // KIND_K and len(evals) == 2,
+                  f"{name}: logged {len(steps)} steps, {len(evals)} evals")
+            check(all(np.isfinite(v) for m in steps + evals
+                      for v in m.values()), f"{name}: a metric not finite")
+            check(losses_[-1] < losses_[0], f"{name}: the loss did not "
+                                            f"fall: {losses_}")
+            want = {"masked_bce_sum_dual": KIND_STEPS,
+                    "masked_bce_sum": len(evals),
+                    "first_conv_s2": convs * (KIND_STEPS + len(evals)),
+                    "first_conv_s2_bwd": convs * KIND_STEPS}
+            check(all(launches[k] == v for k, v in want.items()),
+                  f"{name}: train launches {launches}, expected {want}")
+            res.update(train_launches=launches, losses=losses_,
+                       eval_loss=[m["eval_loss"] for m in evals],
+                       train_seconds_with_startup=dt)
+            log(f"kinds {name} train: losses {losses_}, evals "
+                f"{res['eval_loss']}, launches {launches}, {dt:.2f} s")
+            if name == "c4_cond":
+                model_b, _, logged_b, launches_b, _ = _kind_train(
+                    cfg, train_ds, eval_ds, dev)
+                counted(launches_b)
+                same = ([m for _, m in logged] == [m for _, m in logged_b]
+                        and all(torch.equal(a, b) for a, b in zip(
+                            model.parameters(), model_b.parameters())))
+                res["repeat_same_bits"] = same
+                log(f"kinds {name} repeated run: same bits {same}")
+                check(same, f"{name}: a repeated run differs")
+                del model_b
+            ck = os.path.join(root, name)
+            check(ckpt_io.save(ckpt_io.make_manager(ck), state, cfg,
+                               wait=True), f"{name}: not saved")
+            res["timing"] = _kind_timing(cfg, state, train_ds, dev, seed)
+            log(f"kinds {name} train timing ({card}): {res['timing']}")
+            res["reference"] = reference_check(seed, dev, name)
+
+            gcfg = cfg.replace(gen=GenSpec(num_bars=GEN_BARS,
+                                           num_samples=GEN_SAMPLES))
+            _kernels.reset_launches()
+            bars = sampler.make_generate_fn(gcfg, model)(
+                sampler.seed_generator(seed, dev))
+            torch.cuda.synchronize()
+            gen_launches = dict(_kernels.LAUNCHES)
+            counted(gen_launches)
+            check(tuple(bars.shape) == (GEN_SAMPLES, GEN_BARS, 96, 128),
+                  f"{name}: generated {tuple(bars.shape)}")
+            check(gen_launches["first_conv_s2"]
+                  == (0 if name == "c1_conv_bar" else GEN_BARS),
+                  f"{name}: generate launches {gen_launches}")
+            res["generate"] = {"density": float(bars.float().mean()),
+                               "launches": gen_launches}
+            _kernels.reset_launches()
+            res["serve"] = _kind_serve(name, gcfg, model, dev, seed)
+            torch.cuda.synchronize()
+            counted(dict(_kernels.LAUNCHES))
+            log(f"kinds {name} serve ({card}): {res['serve']}")
+            if name == "c3_hier_16bar":
+                o, e, ms, morph_launches = _timed_cli([
+                    "generate", "--ckpt-dir", ck, "--seed-midi", midis[0],
+                    "--encode", "--interpolate", "--interp-midi-b", midis[1],
+                    "--bars", GEN_BARS, "--samples", GEN_SAMPLES,
+                    "--out-dir", os.path.join(root, "morph")])
+                counted(morph_launches)
+                rolls = np.load(os.path.join(root, "morph", "rolls.npy"))
+                check(rolls.shape == (GEN_SAMPLES, GEN_BARS, 96, 128),
+                      f"morph rolls {rolls.shape}")
+                res["morph"] = {"ms": ms, "timing": _timing(e),
+                                "launches": morph_launches,
+                                "density": float(rolls.mean())}
+                log(f"kinds {name} morph: {res['morph']}")
+            res["convert"] = _kind_convert(name, cfg, ck, root, seed)
+            log(f"kinds {name} convert: {res['convert']}")
+            res["seconds"] = time.perf_counter() - t_kind
+            out[name] = res
+            del model, state
+
+        # c5_gen_sweep: 1,024 samples x 64 bars, interpolation, once
+        c5 = get_config("c5_gen_sweep")
+        c5 = c5.replace(model=dataclasses.replace(c5.model,
+                                                  use_pallas_conv1=True))
+        model = build_model(c5, device=dev, seed=seed)
+        sweep = sampler.make_generate_fn(c5, model)
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bars = sweep(sampler.seed_generator(seed, dev))
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        sweep_launches = dict(_kernels.LAUNCHES)
+        counted(sweep_launches)
+        t0 = time.perf_counter()
+        exported = [sampler.bars_to_midi(bars[i].cpu().numpy(), c5)
+                    for i in range(SWEEP_MIDIS)]
+        export_s = time.perf_counter() - t0
+        check(tuple(bars.shape) == (1024, 64, 96, 128)
+              and sweep_launches["first_conv_s2"] == 64,
+              f"c5 sweep {tuple(bars.shape)}, launches {sweep_launches}")
+        out["c5_gen_sweep"] = {
+            "samples": 1024, "bars": 64, "seconds": sweep_s,
+            "bars_per_s": 1024 * 64 / sweep_s,
+            "export_seconds_4_samples": export_s,
+            "midi_bytes": [len(m) for m in exported],
+            "density": float(bars.float().mean()),
+            "launches": sweep_launches}
+        log(f"kinds c5_gen_sweep ({card}): {out['c5_gen_sweep']}")
+        del bars, model
+        torch.cuda.empty_cache()
+        out["kernel_shapes"] = _kinds_kernel_shapes(seed, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"kinds launches: {total}")
+    log(f"kinds phase: {out['seconds']:.1f} s")
+    return {"kinds": total}, out
+
+
 def profile_phase(seed: int, dev: torch.device):
     """Development aid, not part of the default run: where one train
     step's time goes. Which parts of a step the launch queue can hold
@@ -2640,7 +3192,7 @@ def profile_phase(seed: int, dev: torch.device):
 
 
 PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train",
-          "ckpt", "corpus", "serve_stack")
+          "ckpt", "corpus", "serve_stack", "kinds")
 
 
 def main() -> int:
@@ -2701,6 +3253,14 @@ def main() -> int:
         stack_runs, details["serve_stack"] = serve_stack_phase(
             args.seed, dev, card)
         runs.update(stack_runs)
+    if "kinds" in only:
+        kinds_runs, details["kinds"] = kinds_phase(args.seed, dev, card)
+        runs.update(kinds_runs)
+        shapes = details["kinds"]["kernel_shapes"]
+        for e in entries:
+            rows = shapes.get(e["name"].split()[0])
+            if rows:
+                e["kinds_shapes"] = rows
     if "profile" in only:
         details["profile"] = profile_phase(args.seed, dev)
 

@@ -2,7 +2,7 @@
 the port's layouts.
 
 The port's own copy of the flax → torch direction of the JAX package's
-checkpoints/torch_convert.py, for the kinds the port runs, and
+checkpoints/torch_convert.py, for the four parity kinds, and
 ``canonical_state_dict``, which checks a torch state dict against a config
 and brings it to the form that round trip gives. Its output
 equals ``flax_params_to_torch_state_dict`` key for key (the names are the
@@ -15,6 +15,7 @@ it as it is. Layouts:
 - Dense kernel (in,out)                      → Linear (out,in)
 - GRUCell {ir,iz,in,hr,hz,hn}                → weight_ih=[Wr;Wz;Wn],
   weight_hh=[Ur;Uz;Un], bias_ih=[b_ir;b_iz;b_in], bias_hh=[0;0;b_hn]
+- Embed {embedding} (classes,features)       → Embedding weight, as it is
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def canonical_state_dict(sd: Dict[str, Any],
     and shape checked against the model ``cfg`` builds, before anything
     is written, then f32 CPU tensors in the model's order.
 
-    Each GRU's r/z hidden biases ``bias_hh[:2H]`` are folded into
+    Each GRU's r/z hidden biases ``bias_hh[:2H]`` (``enc_gru``,
+    ``dec_gru`` and hier's ``conductor``) are folded into
     ``bias_ih[:2H]`` (both sit inside the same sigmoid) and zeroed: flax
     keeps one bias there, so this is what the JAX package's
     ``torch_state_dict_to_flax`` → ``flax_params_to_torch_state_dict``
@@ -118,15 +120,33 @@ def flax_params_to_state_dict(params: Dict[str, Any],
         out[f"{name}.bias_hh"] = t(np.concatenate(
             [np.zeros(2 * h, np.float32), np.asarray(p["hn"]["bias"])]))
 
+    spec = cfg.model
     dec = params["decoder"]
+    if spec.kind == "conv_bar":
+        for key, sub in params["enc_trunk"].items():
+            put_conv(f"enc_trunk.convs.{key.split('_')[1]}", sub)
+        put_dense("z_head", params["z_head"]["Dense_0"])
+        put_head("head", dec["head"])
+        if spec.use_prev_bar:
+            put_barfeat("prev_feat", dec["prev_feat"])
+        return out
     put_barfeat("enc_feat", params["enc_feat"])
     put_gru("enc_gru", params["enc_gru"]["GRUCell_0"])
     put_dense("h_init", dec["h_init"])
-    if cfg.model.use_prev_bar:
+    if spec.use_prev_bar:
         put_barfeat("prev_feat", dec["prev_feat"])
     put_gru("dec_gru", dec["seq_gru"])
     put_head("head", dec["head"])
-    put_dense("z_head", params["z_head"]["Dense_0"])
+    if spec.kind == "hier":
+        put_dense("phrase_head", params["phrase_head"]["Dense_0"])
+        put_dense("bar_head", params["bar_head"]["Dense_0"])
+        put_dense("cond_init", dec["cond_init"])
+        put_gru("conductor", dec["conductor"])
+    else:
+        put_dense("z_head", params["z_head"]["Dense_0"])
+    if spec.kind == "cond":
+        out["chord_emb.weight"] = t(params["chord_emb"]["embedding"])
+        out["key_emb.weight"] = t(params["key_emb"]["embedding"])
     return out
 
 

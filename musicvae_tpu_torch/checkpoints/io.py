@@ -286,7 +286,7 @@ def restore(manager: CheckpointManager, template_state,
         return template_state, restored
     raise RuntimeError(
         f"all checkpoint steps {steps} failed to restore (nothing was "
-        f"deleted or quarantined; if this is a config/template mismatch, "
+        f"deleted or quarantined — if this is a config/template mismatch, "
         f"retry with the checkpoint's own config)") from last_err
 
 

@@ -17,16 +17,18 @@ encodes and decodes MIDI files and reports cell P/R/F1; ``eval-gen``
 scores generations against a corpus (utils/genmetrics.py); ``describe``
 reports what a checkpoint directory holds without touching a device
 (``cmd_describe``); ``convert`` moves weights between the port's
-checkpoints and torch or safetensors files (``cmd_convert``). Streaming,
-the sharded corpus and the cond kind's flags are later items of
-ROADMAP.md; they are parsed and refused.
+checkpoints and torch or safetensors files (``cmd_convert``). Every
+command runs the four parity kinds (conv_bar, gru_seq, hier, cond).
+Streaming and the sharded corpus are later items of ROADMAP.md; their
+flags are parsed and refused.
 
 ``serve`` is the counterpart of ``cmd_serve``: a persistent generation
 service speaking the line-delimited JSON protocol of docs/SERVING.md, over
 a checkpoint (``--ckpt-dir``, its EMA weights with ``--ema``), a state dict
 (``--weights``) or random weights.
 
-  request:  {"id": any, "seed": int, "seed_midi_b64": str?}
+  request:  {"id": any, "seed": int, "seed_midi_b64": str?, "chord": int?,
+             "key": int?}
   response: {"id": any, "midi_b64": [str, ...], "density": float,
              "latency_ms": float}
   stats:    {"id": any, "cmd": "stats"} → {"id": any, "stats": {served,
@@ -36,8 +38,11 @@ a checkpoint (``--ckpt-dir``, its EMA weights with ``--ema``), a state dict
   error:    {"id": any, "error": str}
 
 ``seed_midi_b64`` (base64 SMF bytes) seeds the prev-bar conditioning with
-the file's last bar; ``chord``/``key`` are ignored, as the JAX package
-ignores them for kinds other than cond. Transports: stdin, one sweep a
+the file's last bar. ``chord``/``key`` (classes 0..23) condition a cond
+model's every sample and bar; an omitted one is drawn from
+``np.random.default_rng(seed)`` as the JAX server draws it
+(``request_labels``). Other kinds ignore them, as the JAX package does.
+Transports: stdin, one sweep a
 request (``serve_stream``; ``--pipeline`` enqueues sweep i+1 on the card
 before pulling and exporting i), stdin under ``--coalesce W`` (up to W
 queued requests in one sweep, ``serve_stream_coalesced``), and a threaded
@@ -118,6 +123,30 @@ def to_host(packed: torch.Tensor) -> np.ndarray:
     return unpack_bits_np(packed.cpu().numpy())
 
 
+def request_labels(cfg: Config, req: dict, seed: int):
+    """(chord [B, N], key_sig [B]) int64 classes of a request to a cond
+    model, (None, None) for other kinds: a given ``chord``/``key`` for
+    every sample (and bar), an omitted one drawn from
+    ``np.random.default_rng(seed)``, the chords first, as the JAX server
+    draws them. A class out of range raises ValueError."""
+    if cfg.model.kind != "cond":
+        return None, None
+    b, n = cfg.gen.num_samples, cfg.gen.num_bars
+    rng = np.random.default_rng(seed)
+    out = []
+    for field, classes, shape in (
+            ("chord", cfg.model.cond_chord_classes, (b, n)),
+            ("key", cfg.model.cond_key_classes, (b,))):
+        if req.get(field) is None:
+            out.append(rng.integers(0, classes, shape))
+            continue
+        v = int(req[field])
+        if not 0 <= v < classes:
+            raise ValueError(f"{field} {v} out of range")
+        out.append(np.full(shape, v, np.int64))
+    return tuple(out)
+
+
 def _seed_bar(cfg: Config, b64: str) -> np.ndarray:
     """The last bar, uint8 [T, P], of a base64 SMF file."""
     from musicvae_tpu_torch.midi import tensorize
@@ -181,13 +210,16 @@ class Service:
         if seeded:
             seed_bars.append(np.zeros((self.cfg.midi.steps_per_bar,
                                        self.cfg.midi.num_pitches), np.uint8))
+        labels = request_labels(self.cfg, {}, 0)
         for sb in seed_bars:
-            to_host(self.dispatch(seed_generator(0, self.device), sb))
+            to_host(self.dispatch(seed_generator(0, self.device), sb,
+                                  *labels))
 
     def prepare(self, line: str):
         """(rid, kind, payload) of one request line, None for a blank one.
-        kind "gen": payload (generator, seed bar [T, P] uint8 or None), the
-        request counted; "stats": the request count so far; "reload":
+        kind "gen": payload (generator, seed bar [T, P] uint8 or None,
+        chord [B, N] and key_sig [B] classes or None: ``request_labels``),
+        the request counted; "stats": the request count so far; "reload":
         None; "error": the message (counted when answered)."""
         line = line.strip()
         if not line:
@@ -208,23 +240,31 @@ class Service:
             with self.lock:
                 seed = int(req.get("seed", self.requests))
                 self.requests += 1
+            chord, key_sig = request_labels(self.cfg, req, seed)
             sb = None
             if req.get("seed_midi_b64"):
                 sb = _seed_bar(self.cfg, req["seed_midi_b64"])
-            return rid, "gen", (seed_generator(seed, self.device), sb)
+            return rid, "gen", (seed_generator(seed, self.device), sb,
+                                chord, key_sig)
         except Exception as e:      # the service never dies on a request
             traceback.print_exc(file=sys.stderr)
             return rid, "error", f"{type(e).__name__}: {e}"
 
     def dispatch(self, generator: torch.Generator,
-                 seed_bar: Optional[np.ndarray]) -> torch.Tensor:
+                 seed_bar: Optional[np.ndarray],
+                 chord: Optional[np.ndarray] = None,
+                 key_sig: Optional[np.ndarray] = None) -> torch.Tensor:
         """Enqueue one request's sweep: its bars, 1-bit packed on the card
         (1/8 of the bytes cross to the host)."""
         sb = None
         if seed_bar is not None:        # contiguous: K1 refuses a stride-0
             sb = torch.from_numpy(seed_bar).to(self.device)[None].repeat(
                 self.cfg.gen.num_samples, 1, 1)
-        return pack_bits(self.weights.generate(generator, seed_bar=sb))
+        kw = {}
+        if chord is not None:
+            kw = {"chord": torch.from_numpy(chord).to(self.device),
+                  "key_sig": torch.from_numpy(key_sig).to(self.device)}
+        return pack_bits(self.weights.generate(generator, seed_bar=sb, **kw))
 
     def respond(self, rid, bars: np.ndarray, t_req: float) -> dict:
         resp = _gen_response(rid, bars, self.cfg, t_req)
@@ -366,11 +406,12 @@ def serve_stream(service: Service, inp: TextIO, out: TextIO,
 
 class _CoalescedRunner:
     """Host side of dynamic batching: up to ``width`` requests' (generator,
-    seed bar) into one coalesced sweep (``make_coalesced_generate_fn``).
-    Two tiers: a lone request runs at W=1, at a lone sweep's cost; 2+ pad
-    to the full width with seed-0 generators and zero seed bars, whose
-    bars are dropped before the unpack. Both tiers run the same sweep, so
-    a slot's music does not depend on the tier."""
+    seed bar, chord, key_sig) into one coalesced sweep
+    (``make_coalesced_generate_fn``). Two tiers: a lone request runs at
+    W=1, at a lone sweep's cost; 2+ pad to the full width with seed-0
+    generators, zero seed bars and (cond) class-0 labels, whose bars are
+    dropped before the unpack. Both tiers run the same sweep, so a slot's
+    music does not depend on the tier."""
 
     def __init__(self, service: Service, width: int):
         self.service, self.width = service, width
@@ -380,27 +421,38 @@ class _CoalescedRunner:
 
     def warm(self) -> None:
         """Both tiers once, so no request pays a first call's set-up."""
-        dev = self.service.device
-        self.run([(seed_generator(0, dev), None)])
+        item = (seed_generator(0, self.service.device), None,
+                *request_labels(self.service.cfg, {}, 0))
+        self.run([item])
         if self.width > 1:
-            self.run([(seed_generator(0, dev), None)] * 2)
+            self.run([item] * 2)
 
     def run(self, items) -> List[np.ndarray]:
-        """items: [(generator, seed bar [T, P] uint8 or None), ...], at
-        most ``width`` → one uint8 [B, N, T, P] bars array an item, in
-        order."""
-        dev = self.service.device
+        """items: [(generator, seed bar [T, P] uint8 or None, chord,
+        key_sig), ...] (``Service.prepare``'s payloads), at most ``width``
+        → one uint8 [B, N, T, P] bars array an item, in order."""
+        cfg, dev = self.service.cfg, self.service.device
         n = len(items)
         pad = (1 if n == 1 else self.width) - n
-        gens = [g for g, _ in items] + [seed_generator(0, dev)
-                                        for _ in range(pad)]
+        gens = [it[0] for it in items] + [seed_generator(0, dev)
+                                          for _ in range(pad)]
         seed_bars = np.zeros((n + pad,) + self._shape, np.uint8)
-        for i, (_, sb) in enumerate(items):
-            if sb is not None:
-                seed_bars[i] = sb
+        for i, it in enumerate(items):
+            if it[1] is not None:
+                seed_bars[i] = it[1]
+        labels = {}
+        if cfg.model.kind == "cond":
+            b, nb = cfg.gen.num_samples, cfg.gen.num_bars
+            chords = np.zeros((n + pad, b, nb), np.int64)
+            keys = np.zeros((n + pad, b), np.int64)
+            for i, it in enumerate(items):
+                chords[i], keys[i] = it[2], it[3]
+            labels = {"chords": list(torch.from_numpy(chords).to(dev)),
+                      "key_sigs": list(torch.from_numpy(keys).to(dev))}
         # one read of the weights: a reload cannot tear the sweep
         coalesced = self.service.weights.coalesced
-        packed = coalesced(gens, torch.from_numpy(seed_bars).to(dev))
+        packed = coalesced(gens, torch.from_numpy(seed_bars).to(dev),
+                           **labels)
         bars = to_host(packed[:n])
         return [bars[i] for i in range(n)]
 
@@ -1244,6 +1296,7 @@ def cmd_eval(args: argparse.Namespace) -> int:
     padded to the batch size with weight-0 rows, and the means are
     weighted by real windows."""
     from musicvae_tpu_torch.data.dataset import PianoRollDataset
+    from musicvae_tpu_torch.models.vae import draw_eps
     from musicvae_tpu_torch.utils.metrics import make_eval_fn
 
     loaded = _checkpoint_model(args, lambda c: _apply_midi_overrides(c, args),
@@ -1279,10 +1332,11 @@ def cmd_eval(args: argparse.Namespace) -> int:
             idx = np.resize(idx, b)
             w = torch.zeros(b, device=dev)
             w[:n_real] = 1.0
-        x = torch.from_numpy(ds.batch(idx, x_dtype=np.uint8)["x"]).to(dev)
-        eps = torch.randn((b, cfg.model.z_dim), device=dev,
-                          generator=torch.Generator(dev).manual_seed(i))
-        for k, v in eval_fn(x, eps, w).items():
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 ds.batch(idx, x_dtype=np.uint8).items()}
+        eps = draw_eps(cfg.model, b, torch.Generator(dev).manual_seed(i))
+        for k, v in eval_fn(batch["x"], eps, w, batch["chord"],
+                            batch["key_sig"]).items():
             acc.setdefault(k, []).append(float(v))
         real.append(n_real)
     wt = np.asarray(real, np.float64)
@@ -1328,7 +1382,9 @@ def _seed_from_midi(cfg: Config, model: PianoRollVAE, path: str,
     (``seed_bar``, uint8 on the model's device); with ``encode`` its last
     ``model.num_bars``-bar window (zero-padded at the front when the piece
     is shorter) is encoded and a posterior draw a sample pins the first
-    phrase's latent (``z0``)."""
+    phrase's latent (``z0``; for hier the phrase latent ``z_phrase0``). A
+    cond model encodes the window under the key and chord of its summed
+    pitch-class histogram."""
     from musicvae_tpu_torch.generate.sampler import make_encode_fn
     from musicvae_tpu_torch.midi import tensorize
 
@@ -1354,28 +1410,48 @@ def _seed_from_midi(cfg: Config, model: PianoRollVAE, path: str,
                           np.uint8), window], axis=0)
         x = torch.from_numpy(window).to(dev, torch.float32)[None].repeat(
             num_samples, 1, 1, 1)
-        kw.update(make_encode_fn(cfg, model)(x, generator))
+        labels = {}
+        if cfg.model.kind == "cond":
+            from musicvae_tpu_torch.midi import labels as labels_mod
+
+            hist = labels_mod.bar_pc_histograms(window).sum(0)
+            k = labels_mod.key_from_hist(hist)
+            c = labels_mod.chord_from_hist(hist, fallback=k)
+            labels = {"chord": torch.full((num_samples, nb), int(c),
+                                          device=dev),
+                      "key_sig": torch.full((num_samples,), int(k),
+                                            device=dev)}
+        kw.update(make_encode_fn(cfg, model)(x, generator, **labels))
     return kw, None
 
 
-def _later_gen_flags(args: argparse.Namespace) -> int:
-    """2 after naming the cond kind's flags (ROADMAP.md item A9), else
-    0."""
-    later = [f"--{f} (ROADMAP.md item A9)" for f in ("chord", "key")
-             if getattr(args, f) is not None]
-    if later:
-        print(f"error: {', '.join(later)} not in the PyTorch port yet",
-              file=sys.stderr)
-        return 2
-    return 0
+def _cond_flags(args: argparse.Namespace, cfg: Config, dev):
+    """(sweep kwargs, rc) of ``--chord``/``--key`` on a cond model: each
+    given class for every sample (and bar), rc 2 after the JAX package's
+    error for one out of range. Other kinds ignore the flags, as the JAX
+    package does."""
+    kw = {}
+    if cfg.model.kind != "cond":
+        return kw, 0
+    b, n = cfg.gen.num_samples, cfg.gen.num_bars
+    for flag, name, classes, shape in (
+            ("chord", "chord", cfg.model.cond_chord_classes, (b, n)),
+            ("key", "key_sig", cfg.model.cond_key_classes, (b,))):
+        v = getattr(args, flag)
+        if v is None:
+            continue
+        if not 0 <= v < classes:
+            print(f"error: --{flag} {v} out of range 0..{classes - 1}",
+                  file=sys.stderr)
+            return kw, 2
+        kw[name] = torch.full(shape, v, device=dev)
+    return kw, 0
 
 
 def cmd_generate(args: argparse.Namespace) -> int:
     """Bar-by-bar sampling from a checkpoint (or random weights) into
     ``--out-dir``: ``rolls.npy`` (uint8 [samples, bars, T, P]) and up to
     ``--write-midis`` ``sample_NNNN.mid`` files."""
-    if _later_gen_flags(args):
-        return 2
     loaded = _load_gen_state(args, _gen_spec_from_args(args),
                              what="generating")
     if loaded is None:
@@ -1406,9 +1482,17 @@ def cmd_generate(args: argparse.Namespace) -> int:
         if err:
             print(f"error: {err}", file=sys.stderr)
             return 2
-        # B's encoded posterior pins the slerp END; B's seed bar is
-        # discarded — the sweep starts from A's material
-        kw["z1"] = kw_b["z0"]
+        # B's encoded posterior pins the slerp END (for hier the phrase
+        # latent's morph end); B's seed bar is discarded — the sweep
+        # starts from A's material
+        if "z0" in kw_b:
+            kw["z1"] = kw_b["z0"]
+        if "z_phrase0" in kw_b:
+            kw["z_phrase1"] = kw_b["z_phrase0"]
+    cond_kw, rc = _cond_flags(args, cfg, dev)
+    if rc:
+        return rc
+    kw.update(cond_kw)
     sweep = make_generate_fn(cfg, model)
     t0 = time.perf_counter()
     packed = pack_bits(sweep(gen, **kw))
@@ -1485,11 +1569,14 @@ def cmd_reconstruct(args: argparse.Namespace) -> int:
     binarize → MIDI out into --out-dir, with the cell precision, recall
     and F1 of each file's reconstruction against its input roll,
     crop-masked. Each file goes through fixed [1, num_bars, T, P] windows
-    (the tail zero-padded), window w with the posterior seed --seed + w."""
+    (the tail zero-padded), window w with the posterior seed --seed + w. A
+    cond model reads each window under the file's key and the window's
+    chord, from their pitch-class histograms (midi/labels.py)."""
     import glob
 
     from musicvae_tpu_torch.checkpoints import io as ckpt_io
     from musicvae_tpu_torch.generate.sampler import reconstruct_fn
+    from musicvae_tpu_torch.midi import labels as labels_mod
     from musicvae_tpu_torch.midi import tensorize
 
     if ckpt_io.make_manager(args.ckpt_dir).latest_step() is None:
@@ -1522,9 +1609,21 @@ def cmd_reconstruct(args: argparse.Namespace) -> int:
             bars = np.concatenate(
                 [bars, np.zeros((pad,) + bars.shape[1:], np.uint8)], axis=0)
         x_all = torch.from_numpy(bars).to(dev, torch.float32)
-        outs = [rec(x_all[w * nb:(w + 1) * nb][None],
-                    torch.Generator(dev).manual_seed(args.seed + w))
-                for w in range(bars.shape[0] // nb)]
+        if cfg.model.kind == "cond":
+            hists = labels_mod.bar_pc_histograms(bars)
+            ksig = labels_mod.key_from_hist(hists.sum(0))
+        outs = []
+        for w in range(bars.shape[0] // nb):
+            labels = {}
+            if cfg.model.kind == "cond":
+                c = labels_mod.chord_from_hist(
+                    hists[w * nb:(w + 1) * nb].sum(0), fallback=ksig)
+                labels = {"chord": torch.full((1, nb), int(c), device=dev),
+                          "key_sig": torch.full((1,), int(ksig),
+                                                device=dev)}
+            outs.append(rec(x_all[w * nb:(w + 1) * nb][None],
+                            torch.Generator(dev).manual_seed(args.seed + w),
+                            **labels))
         roll = torch.cat([o[0] for o in outs]).to(torch.uint8).cpu(
             ).numpy()[:n]
         # cell-level reconstruction quality vs the input, crop-masked
@@ -1907,8 +2006,9 @@ def make_parser() -> argparse.ArgumentParser:
     _add_gen_flags(p, samples=4)
     for flag in ("chord", "key"):
         p.add_argument(f"--{flag}", type=int, default=None,
-                       help="conditional models: not in the PyTorch port "
-                            "yet")
+                       help=f"cond models: condition every sample on this "
+                            f"{flag} class (0..23; default a random class "
+                            f"a sample); other kinds ignore it")
     p.add_argument("--seed-midi", default=None,
                    help="continue from real music: the file's last bar "
                         "seeds the prev-bar conditioning")

@@ -1,20 +1,22 @@
 """Bar-by-bar generation, latent paths, posterior encode and reconstruction.
 
-Counterpart of the JAX package's generate/sampler.py (kind ``gru_seq``).
+Counterpart of the JAX package's generate/sampler.py, for the four parity
+kinds.
 Random draws come from an explicit ``torch.Generator`` on the model's
 device or are handed in (``noise``, ``uniforms``, ``eps``): the two
 frameworks' generators cannot be matched bit for bit, so the tests give
 both packages the same draws.
 
 Latent paths: one z ~ N(0, I)·temperature per phrase (phrase =
-``model.num_bars`` bars), held within the phrase, with the GRU state reset
-at phrase starts; under ``interpolate`` z slerps from z_a to z_b across
-phrases. ``z0``/``z1`` pin the first phrase (the slerp start) and the
-slerp end, typically to encoded posterior samples of real music
+``model.num_bars`` bars; one bar for hier, whose bar latents vary bar by
+bar under its phrase latent), held within the phrase, with the recurrent
+state reset at phrase starts; under ``interpolate`` z slerps from z_a to
+z_b across phrases. ``z0``/``z1`` pin the first phrase (the slerp start)
+and the slerp end, typically to encoded posterior samples of real music
 (``make_encode_fn``).
 
 ``make_coalesced_generate_fn`` runs W requests, each with its own
-generator and seed bar, as one [W·B]-batched sweep (``serve
+generator, seed bar and labels, as one [W·B]-batched sweep (``serve
 --coalesce``); ``seed_generator`` is the one map from a request's seed to
 its draws on every serve path.
 """
@@ -29,7 +31,7 @@ import torch
 from musicvae_tpu_torch.config import Config
 from musicvae_tpu_torch.midi import tensorize
 from musicvae_tpu_torch.models.latent import reparameterize, slerp
-from musicvae_tpu_torch.models.vae import PianoRollVAE
+from musicvae_tpu_torch.models.vae import PianoRollVAE, draw_eps
 from musicvae_tpu_torch.ops.binarize import binarize_logits
 from musicvae_tpu_torch.ops.pack import pack_bits
 
@@ -103,23 +105,82 @@ def latent_path(cfg: Config, batch: int, num_bars: int, interpolate: bool,
     return z_bars, reset
 
 
+def sweep_draws(cfg: Config, batch: int,
+                generator: Optional[torch.Generator], device=None,
+                noise: Optional[torch.Tensor] = None,
+                chord: Optional[torch.Tensor] = None,
+                key_sig: Optional[torch.Tensor] = None,
+                z_phrase0: Optional[torch.Tensor] = None):
+    """What a sweep takes from its generator before its first bar, each
+    draw made only where the caller gives no value, in this order: the
+    latent path's normals (``latent_noise``); for cond, chord classes
+    [B, num_bars] and key classes [B], uniform over the classes; for
+    hier, the phrase latent [B, z_phrase] ~ N(0, I)·temperature. Returns
+    (noise, chord, key_sig, z_phrase), None where the kind has none."""
+    g, spec = cfg.gen, cfg.model
+    dev = generator.device if generator is not None else device
+    if noise is None:
+        noise = latent_noise(cfg, batch, g.num_bars, g.interpolate,
+                             generator)
+    if spec.kind == "cond":
+        if chord is None:
+            chord = torch.randint(0, spec.cond_chord_classes,
+                                  (batch, g.num_bars), generator=generator,
+                                  device=dev)
+        if key_sig is None:
+            key_sig = torch.randint(0, spec.cond_key_classes, (batch,),
+                                    generator=generator, device=dev)
+    else:
+        chord = key_sig = None
+    z_phrase = None
+    if spec.kind == "hier":
+        z_phrase = z_phrase0
+        if z_phrase is None:
+            z_phrase = torch.randn((batch, spec.z_phrase_dim),
+                                   generator=generator,
+                                   device=dev) * g.temperature
+    return noise, chord, key_sig, z_phrase
+
+
 def _sweep_body(cfg: Config, model: PianoRollVAE):
     """The sweep both generate functions run: (batch, generator,
-    seed_bar, z0, z1, noise, uniforms) → bars [batch, num_bars, T, P]
-    uint8, for the settings in ``cfg.gen``."""
+    seed_bar, z0, z1, noise, uniforms, chord, key_sig, z_phrase0,
+    z_phrase1) → bars [batch, num_bars, T, P] uint8, for the settings in
+    ``cfg.gen``. The generator's draws: ``sweep_draws``, then in
+    Bernoulli mode each bar's uniforms.
+
+    hier: ``z_phrase0`` [B, z_phrase] pins the phrase latent (the piece
+    identity), and under ``interpolate`` ``z_phrase1`` slerps it bar by
+    bar from z_phrase0 to z_phrase1 while the per-bar z path keeps its own
+    granularity (``z0``/``z1`` pin that path's endpoints: the two knobs
+    compose)."""
     g = cfg.gen
     if g.sample_mode not in ("threshold", "bernoulli"):
         raise ValueError(f"unknown GenSpec.sample_mode {g.sample_mode!r}; "
                          "expected 'threshold' or 'bernoulli'")
+    dev = next(model.parameters()).device
 
-    def body(batch, generator, seed_bar, z0, z1, noise, uniforms):
+    def body(batch, generator, seed_bar, z0, z1, noise, uniforms,
+             chord=None, key_sig=None, z_phrase0=None, z_phrase1=None):
+        if z_phrase1 is not None and not (cfg.model.kind == "hier"
+                                          and g.interpolate):
+            raise ValueError("z_phrase1 morphs the hier phrase latent and "
+                             "needs kind='hier' plus interpolate=True")
+        noise, chord, key_sig, z_phrase = sweep_draws(
+            cfg, batch, generator, dev, noise, chord, key_sig, z_phrase0)
         z_bars, reset = latent_path(cfg, batch, g.num_bars, g.interpolate,
-                                    g.temperature, generator=generator,
-                                    noise=noise, z0=z0, z1=z1)
-        kw = {}
+                                    g.temperature, noise=noise, z0=z0,
+                                    z1=z1)
+        if z_phrase1 is not None:
+            ts = (torch.linspace(0.0, 1.0, g.num_bars, device=noise.device)
+                  if g.num_bars > 1
+                  else torch.tensor([0.5], device=noise.device))
+            z_phrase = slerp(z_phrase[None], z_phrase1[None],
+                             ts[:, None]).transpose(0, 1)   # [B,N,z_phrase]
+        kw = {"chord": chord, "key_sig": key_sig, "z_phrase": z_phrase}
         if g.sample_mode == "bernoulli":
-            kw = {"uniforms": generator if uniforms is None else uniforms,
-                  "sample_temperature": g.sample_temperature}
+            kw.update(uniforms=generator if uniforms is None else uniforms,
+                      sample_temperature=g.sample_temperature)
         return model.generate(z_bars, reset, seed_bar, **kw)[1]
 
     return body
@@ -128,13 +189,16 @@ def _sweep_body(cfg: Config, model: PianoRollVAE):
 def make_generate_fn(cfg: Config, model: PianoRollVAE):
     """Sweep function for the shape, latent and sampling settings in
     ``cfg.gen``: (generator, seed_bar=None, z0=None, z1=None, noise=None,
-    uniforms=None) → bars [num_samples, num_bars, T, P] uint8 on the
+    uniforms=None, chord=None, key_sig=None, z_phrase0=None,
+    z_phrase1=None) → bars [num_samples, num_bars, T, P] uint8 on the
     model's device.
 
     ``seed_bar`` [B,T,P] is the first prev-bar condition (a real bar);
-    ``z0``/``z1`` pin the latent path (``latent_path``). The generator,
-    on the model's device, draws the latent path's normals unless
-    ``noise`` is given and, in Bernoulli mode, each bar's uniforms unless
+    ``z0``/``z1`` pin the latent path (``latent_path``); cond takes chord
+    [B, num_bars] and key_sig [B] classes, hier the phrase latent
+    ``z_phrase0`` and its morph end ``z_phrase1`` (``_sweep_body``). The
+    generator, on the model's device, draws what is not given
+    (``sweep_draws``) and, in Bernoulli mode, each bar's uniforms unless
     ``uniforms`` ([B,N,T,P]) is given."""
     body = _sweep_body(cfg, model)
 
@@ -144,91 +208,120 @@ def make_generate_fn(cfg: Config, model: PianoRollVAE):
               z0: Optional[torch.Tensor] = None,
               z1: Optional[torch.Tensor] = None,
               noise: Optional[torch.Tensor] = None,
-              uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+              uniforms: Optional[torch.Tensor] = None,
+              chord: Optional[torch.Tensor] = None,
+              key_sig: Optional[torch.Tensor] = None,
+              z_phrase0: Optional[torch.Tensor] = None,
+              z_phrase1: Optional[torch.Tensor] = None) -> torch.Tensor:
         return body(cfg.gen.num_samples, generator, seed_bar, z0, z1, noise,
-                    uniforms)
+                    uniforms, chord, key_sig, z_phrase0, z_phrase1)
 
     return sweep
 
 
 def make_coalesced_generate_fn(cfg: Config, model: PianoRollVAE):
     """Dynamic batching for ``serve --coalesce``: W requests, each with its
-    own generator and seed bar, as ONE sweep at batch W·B.
+    own generator, seed bar and (cond) labels, as ONE sweep at batch W·B.
 
     Returns fn(generators [W], seed_bars [W,B,T,P] uint8, noises=None,
-    uniforms=None) → bars [W,B,N,T,P/8] uint8, 1-bit packed along the
-    pitch axis on the model's device (ops/pack.py). A zero seed bar is
-    exactly the unseeded default (``generate`` starts from zeros when
-    seed_bar is None), so plain and seeded requests share the one call.
-    ``noises`` and ``uniforms`` hand in slot i's draws (``make_generate_fn``'s
-    ``noise`` and ``uniforms``, one a slot) in place of generator i's.
+    uniforms=None, chords=None, key_sigs=None) → bars [W,B,N,T,P/8]
+    uint8, 1-bit packed along the pitch axis on the model's device
+    (ops/pack.py). A zero seed bar is exactly the unseeded default
+    (``generate`` starts from zeros when seed_bar is None), so plain and
+    seeded requests share the one call. ``noises``, ``uniforms``,
+    ``chords`` ([B,N] classes) and ``key_sigs`` ([B]) hand in slot i's
+    values (``make_generate_fn``'s ``noise``, ``uniforms``, ``chord`` and
+    ``key_sig``, one a slot, None where the slot has none) in place of
+    generator i's draws; the labels are ignored for kinds other than
+    cond.
 
     Slot i draws what ``make_generate_fn`` draws for generator i, in the
-    same order: its latent normals first, then each bar's uniforms in
-    Bernoulli mode. The bars are computed at batch W·B instead of B, so
-    where a library picks another algorithm for the larger batch a logit
-    at the threshold may round to the other side. The chord/key
-    conditioning of the cond kind waits for that kind (ROADMAP.md A9)."""
+    same order (``sweep_draws``, then each bar's uniforms in Bernoulli
+    mode). The bars are computed at batch W·B instead of B, so where a
+    library picks another algorithm for the larger batch a logit at the
+    threshold may round to the other side."""
     body = _sweep_body(cfg, model)
     g = cfg.gen
+    dev = next(model.parameters()).device
 
     @torch.inference_mode()
     def coalesced(generators: Sequence[Optional[torch.Generator]],
                   seed_bars: torch.Tensor,
                   noises: Optional[Sequence[torch.Tensor]] = None,
-                  uniforms: Optional[Sequence[torch.Tensor]] = None
-                  ) -> torch.Tensor:
+                  uniforms: Optional[Sequence[torch.Tensor]] = None,
+                  chords: Optional[Sequence] = None,
+                  key_sigs: Optional[Sequence] = None) -> torch.Tensor:
         w, b = len(generators), g.num_samples
-        if noises is None:
-            noises = [latent_noise(cfg, b, g.num_bars, g.interpolate, gen)
-                      for gen in generators]
+        slots = [sweep_draws(
+            cfg, b, gen, dev, None if noises is None else noises[i],
+            None if chords is None else chords[i],
+            None if key_sigs is None else key_sigs[i])
+            for i, gen in enumerate(generators)]
+        noise, chord, key_sig, z_phrase = (
+            None if parts[0] is None else
+            torch.cat(list(parts), dim=1 if j == 0 else 0)
+            for j, parts in enumerate(zip(*slots)))
         u = list(generators) if uniforms is None else torch.cat(uniforms)
         bars = body(w * b, None, seed_bars.reshape(w * b,
                                                    *seed_bars.shape[2:]),
-                    None, None, torch.cat(list(noises), dim=1), u)
+                    None, None, noise, u, chord, key_sig, z_phrase)
         packed = pack_bits(bars)
         return packed.reshape(w, b, *packed.shape[1:])
 
     return coalesced
 
 
-def _eps(x: torch.Tensor, cfg: Config,
-         generator: Optional[torch.Generator],
-         eps: Optional[torch.Tensor]) -> torch.Tensor:
-    """The posterior noise [B, z]: ``eps``, else drawn from ``generator``
-    on x's device."""
+def _posterior_noise(cfg: Config, x: torch.Tensor,
+                     generator: Optional[torch.Generator], eps):
+    """The posterior noise of every latent level (``vae.eps_shapes``):
+    ``eps``, else drawn from ``generator`` on x's device."""
     if eps is not None:
         return eps
-    return torch.randn((x.shape[0], cfg.model.z_dim), generator=generator,
-                       device=x.device)
+    return draw_eps(cfg.model, x.shape[0], generator, x.device)
 
 
 def make_encode_fn(cfg: Config, model: PianoRollVAE):
     """Posterior encode for seeded continuation: (x [B, num_bars, T, P],
-    generator=None, eps=None) → {"z0": [B, z]}, one posterior sample
-    mu + eps·exp(logvar/2) per row, eps [B, z] ~ N(0, I) drawn from
-    ``generator`` unless given."""
+    generator=None, eps=None, chord=None, key_sig=None) → one posterior
+    sample mu + eps·exp(logvar/2) a row: {"z0": [B, z]}, or for hier
+    {"z_phrase0": [B, z_phrase]} (the phrase latent, the piece identity;
+    the sweep draws the per-bar z from the prior). eps ~ N(0, I) of that
+    shape, drawn from ``generator`` unless given. cond takes the window's
+    labels, chord [B, num_bars] and key_sig [B]."""
+    hier = cfg.model.kind == "hier"
 
     @torch.inference_mode()
     def encode(x: torch.Tensor, generator: Optional[torch.Generator] = None,
-               eps: Optional[torch.Tensor] = None) -> dict:
-        mu, logvar = model.encode(x)
-        return {"z0": reparameterize(mu, logvar,
-                                     _eps(x, cfg, generator, eps))}
+               eps: Optional[torch.Tensor] = None,
+               chord: Optional[torch.Tensor] = None,
+               key_sig: Optional[torch.Tensor] = None) -> dict:
+        cond_vec = None
+        if cfg.model.kind == "cond":
+            cond_vec = model.cond_vector(chord, key_sig)
+        mu, logvar = model.encode(x, cond_vec)[:2]
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=generator, device=x.device)
+        return {"z_phrase0" if hier else "z0":
+                reparameterize(mu, logvar, eps)}
 
     return encode
 
 
 def reconstruct_fn(cfg: Config, model: PianoRollVAE):
-    """Reconstruction: (x [B, num_bars, T, P], generator=None, eps=None) →
-    encode → posterior sample → teacher-forced decode → binarize, as f32
-    {0,1} [B, num_bars, T, P] (the reference's eval-time reconstruct)."""
+    """Reconstruction: (x [B, num_bars, T, P], generator=None, eps=None,
+    chord=None, key_sig=None) → encode → posterior sample → teacher-forced
+    decode → binarize, as f32 {0,1} [B, num_bars, T, P] (the reference's
+    eval-time reconstruct). ``eps``: each latent level's noise
+    (``vae.eps_shapes``), drawn from ``generator`` unless given; cond
+    takes the window's labels."""
 
     @torch.inference_mode()
     def reconstruct(x: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
-                    eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        logits, _ = model(x, _eps(x, cfg, generator, eps))
+                    eps=None, chord: Optional[torch.Tensor] = None,
+                    key_sig: Optional[torch.Tensor] = None) -> torch.Tensor:
+        logits, _ = model(x, _posterior_noise(cfg, x, generator, eps),
+                          chord=chord, key_sig=key_sig)
         return binarize_logits(logits, cfg.midi.binarize_threshold,
                                model.pitch_mask)
 

@@ -1,4 +1,4 @@
-"""Building blocks of the parity (``stem="conv"``, ``temporal="gru"``) VAE.
+"""Building blocks of the parity (``stem="conv"``, ``temporal="gru"``) VAEs.
 
 Counterparts of the JAX package's models/layers.py, with the state-dict
 names of the torch oracle (tests/oracle/oracle_model.py), so converted JAX
@@ -100,6 +100,16 @@ class BarFeat(ConvTrunk):
 
     def forward(self, bar: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.fc(super().forward(bar)))
+
+
+class Embed(nn.Embedding):
+    """Class-id embedding (the cond kind's chord and key tables), f32 like
+    flax ``nn.Embed`` with ``param_dtype=float32``, drawn as flax's
+    default embedding initializer draws: a plain normal of variance
+    1/features (``variance_scaling(1, "fan_in", "normal", out_axis=0)``)."""
+
+    def reset_parameters(self) -> None:
+        nn.init.normal_(self.weight, std=self.embedding_dim ** -0.5)
 
 
 class GaussianHead(Dense):

@@ -1,4 +1,7 @@
-"""The piano-roll VAE, kind ``gru_seq`` with the parity conv stem (C2).
+"""The piano-roll VAE family with the parity conv stem: the conv bar-VAE
+(kind ``conv_bar``, C1), the GRU sequence-VAE (``gru_seq``, C2), the
+hierarchical bar→phrase VAE (``hier``, C3) and the chord/key-conditional
+VAE (``cond``, C4).
 
 Counterpart of the JAX package's models/vae.py. As there, the decode-path
 weights serve two entry points: ``teacher`` (training decode: the prev-bar
@@ -9,8 +12,8 @@ over the bars. In the JAX package these live on a separate ``BarDecoder``
 module; here ``PianoRollVAE`` inherits them from ``BarDecoder`` so that
 every module keeps the oracle's top-level state-dict name.
 
-The other kinds (conv_bar, hier, cond), the patch stem and the attention
-core are later slices: they raise ``NotImplementedError``.
+The patch stem and the attention core are later slices: they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,18 +47,56 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+KINDS = ("conv_bar", "gru_seq", "hier", "cond")
+
+# the latent levels' noise a forward takes, one tensor a level
+Eps = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
 def check_supported(spec: ModelSpec) -> None:
-    if spec.kind != "gru_seq" or spec.stem != "conv" \
-            or spec.temporal != "gru":
+    """The port builds the four parity kinds with the conv stem and the GRU
+    core; the patch stem and the attention core are later items."""
+    if spec.stem != "conv":
         raise NotImplementedError(
-            f"the PyTorch port runs kind='gru_seq' with stem='conv' and "
-            f"temporal='gru' so far; got kind={spec.kind!r}, "
-            f"stem={spec.stem!r}, temporal={spec.temporal!r} (see "
-            f"ROADMAP.md)")
+            f"the PyTorch port runs stem='conv' so far; got "
+            f"stem={spec.stem!r} (the patch stem is ROADMAP.md item A10)")
+    if spec.temporal != "gru":
+        raise NotImplementedError(
+            f"the PyTorch port runs temporal='gru' so far; got "
+            f"temporal={spec.temporal!r} (the attention core is ROADMAP.md "
+            f"item A11)")
+    if spec.kind not in KINDS:
+        raise ValueError(f"unknown ModelSpec.kind {spec.kind!r}; expected "
+                         f"one of {KINDS}")
+
+
+def eps_shapes(spec: ModelSpec, batch: int) -> List[Tuple[int, ...]]:
+    """The shape of each latent level's noise for a batch: [(B, z)], or
+    [(B, z_phrase), (B, N, z)] for hier."""
+    if spec.kind == "hier":
+        return [(batch, spec.z_phrase_dim), (batch, spec.num_bars, spec.z_dim)]
+    return [(batch, spec.z_dim)]
+
+
+def draw_eps(spec: ModelSpec, batch: int,
+             generator: Optional[torch.Generator],
+             device=None) -> Tuple[torch.Tensor, ...]:
+    """N(0,1) noise for every latent level (``eps_shapes``), drawn from
+    ``generator`` in level order: the phrase level, then the bar level."""
+    dev = generator.device if generator is not None else device
+    return tuple(torch.randn(shape, generator=generator, device=dev)
+                 for shape in eps_shapes(spec, batch))
 
 
 class BarDecoder(nn.Module):
-    """Decode-path weights and the two decode modes."""
+    """Decode-path weights and the two decode modes.
+
+    The per-kind pieces, as in the JAX package: conv_bar has no recurrence
+    (the head reads z and the previous bar's features); gru_seq and cond
+    run ``dec_gru`` over the bars (cond feeds it the chord/key vector and
+    hands the vector on to the head); hier adds the conductor, a second
+    GRU over the phrase latent whose output joins the head input. Both
+    recurrences restart at a reset bar."""
 
     def __init__(self, spec: ModelSpec, midi: MidiSpec):
         super().__init__()
@@ -63,62 +104,136 @@ class BarDecoder(nn.Module):
         self.spec, self.midi = spec, midi
         self.compute_dtype = layers.dtype_of(spec.dtype)
         t, p = midi.steps_per_bar, midi.num_pitches
-        gru_in = spec.z_dim
+        cond_dim = 2 * spec.cond_embed_dim if spec.kind == "cond" else 0
+        feat_dim = spec.bar_feat_dim if spec.use_prev_bar else 0
         if spec.use_prev_bar:
             self.prev_feat = layers.BarFeat(
                 spec.bar_feat_dim, spec.enc_channels, spec.dtype,
                 spec.use_pallas_conv1, steps=t, pitches=p)
-            gru_in += spec.bar_feat_dim
-        self.h_init = layers.Dense(spec.z_dim, spec.gru_hidden, spec.dtype)
-        self.dec_gru = layers.GRUCell(gru_in, spec.gru_hidden, spec.dtype)
+        if spec.kind == "conv_bar":
+            head_in = spec.z_dim + feat_dim
+        else:
+            self.h_init = layers.Dense(spec.z_dim, spec.gru_hidden,
+                                       spec.dtype)
+            self.dec_gru = layers.GRUCell(spec.z_dim + feat_dim + cond_dim,
+                                          spec.gru_hidden, spec.dtype)
+            head_in = spec.gru_hidden + cond_dim
+        if spec.kind == "hier":
+            self.cond_init = layers.Dense(spec.z_phrase_dim, spec.gru_hidden,
+                                          spec.dtype)
+            self.conductor = layers.GRUCell(spec.z_phrase_dim,
+                                            spec.gru_hidden, spec.dtype)
+            head_in = 2 * spec.gru_hidden
         self.head = layers.BarDecoderHead(
-            spec.dec_channels, spec.gru_hidden, t, p, spec.dtype,
-            spec.logits_dtype)
+            spec.dec_channels, head_in, t, p, spec.dtype, spec.logits_dtype)
         self.register_buffer("pitch_mask", pitch_mask(midi),
                              persistent=False)
 
-    def teacher(self, z_bars: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced decode: z_bars [B,N,z], x [B,N,T,P] → logits
-        [B,N,T,P]. Bar k is conditioned on x[:, k-1] (zeros for k = 0)."""
-        b, n, t, p = x.shape
+    def _head_in(self, z, feat, cond, out, c) -> torch.Tensor:
+        """The head's input, the same in both decode modes: z ⊕ feat for
+        conv_bar, else the GRU output ⊕ the cond vector (cond) ⊕ the
+        conductor output (hier)."""
         dt = self.compute_dtype
-        parts = [z_bars.to(dt)]
-        if self.spec.use_prev_bar:
-            prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
-            parts.append(self.prev_feat(prev.reshape(b * n, t, p))
-                         .reshape(b, n, -1))
-        gru_in = torch.cat(parts, dim=-1)
-        h = torch.tanh(self.h_init(z_bars[:, 0]))       # reset at bar 0
-        outs = []
-        for k in range(n):
-            h = self.dec_gru(gru_in[:, k], h)
-            outs.append(h)
-        out = torch.stack(outs, dim=1).reshape(b * n, -1)
-        return self.head(out).reshape(b, n, t, p)
+        if self.spec.kind == "conv_bar":
+            parts = [z.to(dt)] + ([] if feat is None else [feat])
+        else:
+            parts = [out] + ([] if cond is None else [cond.to(dt)]) \
+                + ([] if c is None else [c])
+        return torch.cat(parts, dim=-1)
 
-    def step(self, h: torch.Tensor, prev_bar: torch.Tensor,
-             z: torch.Tensor, reset: torch.Tensor,
-             u: Optional[torch.Tensor] = None,
-             sample_temperature: float = 1.0):
-        """One closed-loop bar. h [B,H], prev_bar [B,T,P] uint8, z [B,z],
-        reset [B] (1 where the GRU state re-initializes). Returns (h,
-        logits [B,T,P], bar [B,T,P] uint8).
+    def _start(self, z, z_phrase):
+        """The recurrences' state at a reset bar: tanh(h_init(z)) and, for
+        hier, tanh(cond_init(z_phrase)) (None otherwise)."""
+        h0 = torch.tanh(self.h_init(z))
+        if self.spec.kind != "hier":
+            return h0, None
+        return h0, torch.tanh(self.cond_init(z_phrase.to(self.compute_dtype)))
+
+    def _recur(self, h, hc, gru_in, z_phrase):
+        """One bar of the recurrences, teacher and generation alike: the
+        GRU on ``gru_in`` and, for hier, the conductor on the phrase
+        latent. Returns (h, hc)."""
+        h = self.dec_gru(gru_in, h)
+        if self.spec.kind == "hier":
+            hc = self.conductor(z_phrase.to(self.compute_dtype), hc)
+        return h, hc
+
+    def teacher(self, z_bars: torch.Tensor, x: torch.Tensor,
+                cond_vec: Optional[torch.Tensor] = None,
+                z_phrase_bars: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Teacher-forced decode: z_bars [B,N,z], x [B,N,T,P], cond_vec
+        [B,N,2E] (cond), z_phrase_bars [B,N,z_phrase] (hier) → logits
+        [B,N,T,P]. Bar k is conditioned on x[:, k-1] (zeros for k = 0);
+        the recurrences start at bar 0."""
+        b, n, t, p = x.shape
+        spec, dt = self.spec, self.compute_dtype
+        feats = None
+        if spec.use_prev_bar:
+            prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+            feats = self.prev_feat(prev.reshape(b * n, t, p)).reshape(
+                b, n, -1)
+        out = c = None
+        if spec.kind != "conv_bar":
+            parts = [z_bars.to(dt)] + ([] if feats is None else [feats])
+            if spec.kind == "cond":
+                parts.append(cond_vec.to(dt))
+            gru_in = torch.cat(parts, dim=-1)
+            zp = [None] * n if z_phrase_bars is None else \
+                z_phrase_bars.unbind(1)
+            h, hc = self._start(z_bars[:, 0], zp[0])    # reset at bar 0
+            outs, cs = [], []
+            for k in range(n):
+                h, hc = self._recur(h, hc, gru_in[:, k], zp[k])
+                outs.append(h)
+                cs.append(hc)
+            out = torch.stack(outs, dim=1).reshape(b * n, -1)
+            if spec.kind == "hier":
+                c = torch.stack(cs, dim=1).reshape(b * n, -1)
+        head_in = self._head_in(
+            z_bars.reshape(b * n, -1),
+            None if feats is None else feats.reshape(b * n, -1),
+            cond_vec.reshape(b * n, -1) if spec.kind == "cond" else None,
+            out, c)
+        return self.head(head_in).reshape(b, n, t, p)
+
+    def step(self, h, prev_bar: torch.Tensor, z: torch.Tensor,
+             reset: torch.Tensor, u: Optional[torch.Tensor] = None,
+             sample_temperature: float = 1.0,
+             cond: Optional[torch.Tensor] = None,
+             z_phrase: Optional[torch.Tensor] = None):
+        """One closed-loop bar. h: the recurrent state, [B,H] (gru_seq,
+        cond), the pair ([B,H], [B,H]) of the GRU and the conductor (hier)
+        or None (conv_bar); prev_bar [B,T,P] uint8, z [B,z], reset [B] (1
+        where the recurrences re-initialize), cond [B,2E] (cond), z_phrase
+        [B,z_phrase] (hier). Returns (h, logits [B,T,P], bar [B,T,P]
+        uint8), h in the structure it came in.
 
         The bar is the threshold binarization of the logits, or, when
         ``u`` (U[0,1) draws [B,T,P]) is given, their Bernoulli sample at
         ``sample_temperature`` (GenSpec.sample_mode "bernoulli").
 
-        At a reset bar the GRU restarts from tanh(h_init(z)) while the
-        previous bar keeps conditioning across the phrase seam, as in the
-        JAX package's ``BarDecoder.step``."""
-        dt = self.compute_dtype
+        At a reset bar the recurrences restart while the previous bar
+        keeps conditioning across the phrase seam, as in the JAX
+        package's ``BarDecoder.step``."""
+        spec, dt = self.spec, self.compute_dtype
+        feat = out = c = None
         parts = [z.to(dt)]
-        if self.spec.use_prev_bar:
-            parts.append(self.prev_feat(prev_bar))
-        h0 = torch.tanh(self.h_init(z))
-        h = torch.where(reset[:, None] > 0, h0, h.to(dt))
-        h = self.dec_gru(torch.cat(parts, dim=-1), h)
-        logits = self.head(h)
+        if spec.use_prev_bar:
+            feat = self.prev_feat(prev_bar)
+            parts.append(feat)
+        if spec.kind == "cond":
+            parts.append(cond.to(dt))
+        if spec.kind != "conv_bar":
+            h, hc = h if spec.kind == "hier" else (h, None)
+            h0, hc0 = self._start(z, z_phrase)
+            reset = reset[:, None] > 0
+            h = torch.where(reset, h0, h.to(dt))
+            if hc is not None:
+                hc = torch.where(reset, hc0, hc.to(dt))
+            out, c = self._recur(h, hc, torch.cat(parts, dim=-1), z_phrase)
+            h = (out, c) if spec.kind == "hier" else out
+        logits = self.head(self._head_in(z, feat, cond, out, c))
         if u is None:
             bar = binarize_logits(logits, self.midi.binarize_threshold,
                                   self.pitch_mask, dtype=torch.uint8)
@@ -129,7 +244,14 @@ class BarDecoder(nn.Module):
 
 
 class PianoRollVAE(BarDecoder):
-    """Encoder + reparameterized latent + the decoder.
+    """Encoder + reparameterized latent(s) + the decoder.
+
+    The encoder per kind: conv_bar runs ``enc_trunk`` on the window's
+    first bar into ``z_head``; the others run ``enc_feat`` on every bar
+    and ``enc_gru`` over the bars (cond appends the chord/key vector to
+    each bar's features), then ``z_head`` on the last state, or for hier
+    ``phrase_head`` (the phrase latent) and ``bar_head`` (each bar's
+    latent from its features and the phrase latent).
 
     ``remat_encoder`` (TrainSpec.remat_encoder): under autograd the per-bar
     encoder features are recomputed in the backward pass instead of being
@@ -141,16 +263,43 @@ class PianoRollVAE(BarDecoder):
         super().__init__(spec, midi)
         self.remat_encoder = remat_encoder
         t, p = midi.steps_per_bar, midi.num_pitches
+        if spec.kind == "conv_bar":
+            self.enc_trunk = layers.ConvTrunk(spec.enc_channels, spec.dtype,
+                                              spec.use_pallas_conv1)
+            self.z_head = layers.GaussianHead(
+                self.enc_trunk.flat_dim(t, p), spec.z_dim, spec.dtype)
+            return
+        cond_dim = 2 * spec.cond_embed_dim if spec.kind == "cond" else 0
         self.enc_feat = layers.BarFeat(
             spec.bar_feat_dim, spec.enc_channels, spec.dtype,
             spec.use_pallas_conv1, steps=t, pitches=p)
-        self.enc_gru = layers.GRUCell(spec.bar_feat_dim, spec.gru_hidden,
-                                      spec.dtype)
-        self.z_head = layers.GaussianHead(spec.gru_hidden, spec.z_dim,
-                                          spec.dtype)
+        self.enc_gru = layers.GRUCell(spec.bar_feat_dim + cond_dim,
+                                      spec.gru_hidden, spec.dtype)
+        if spec.kind == "hier":
+            self.phrase_head = layers.GaussianHead(
+                spec.gru_hidden, spec.z_phrase_dim, spec.dtype)
+            self.bar_head = layers.GaussianHead(
+                spec.bar_feat_dim + spec.z_phrase_dim, spec.z_dim,
+                spec.dtype)
+        else:
+            self.z_head = layers.GaussianHead(spec.gru_hidden, spec.z_dim,
+                                              spec.dtype)
+        if spec.kind == "cond":
+            self.chord_emb = layers.Embed(spec.cond_chord_classes,
+                                          spec.cond_embed_dim)
+            self.key_emb = layers.Embed(spec.cond_key_classes,
+                                        spec.cond_embed_dim)
 
-    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Posterior (mu, logvar), each f32 [B,z], of x [B,N,T,P]."""
+    def cond_vector(self, chord: torch.Tensor,
+                    key_sig: torch.Tensor) -> torch.Tensor:
+        """[B,N] chord ids + [B] key ids → [B,N,2E] f32 conditioning (cond);
+        N comes from chord's shape."""
+        ce = self.chord_emb(chord.long())
+        ke = self.key_emb(key_sig.long())[:, None, :].expand(
+            -1, ce.shape[1], -1)
+        return torch.cat([ce, ke], dim=-1)
+
+    def _bar_feats(self, x: torch.Tensor) -> torch.Tensor:
         b, n, t, p = x.shape
         bars = x.reshape(b * n, t, p)
         if self.remat_encoder and torch.is_grad_enabled():
@@ -159,32 +308,71 @@ class PianoRollVAE(BarDecoder):
                            preserve_rng_state=False)
         else:
             f = self.enc_feat(bars)
-        f = f.reshape(b, n, -1)
-        h = torch.zeros(b, self.spec.gru_hidden, dtype=self.compute_dtype,
-                        device=x.device)
-        for k in range(n):
+        return f.reshape(b, n, -1)
+
+    def encode(self, x: torch.Tensor,
+               cond_vec: Optional[torch.Tensor] = None):
+        """Posterior of x [B,N,T,P]: (mu, logvar), each f32 [B,z]; for hier
+        the phrase posterior and the bar features, (mu_p, logvar_p, feats
+        [B,N,F]). ``cond_vec`` [B,N,2E] joins each bar's features (cond)."""
+        if self.spec.kind == "conv_bar":
+            return self.z_head(self.enc_trunk(x[:, 0]))
+        f = self._bar_feats(x)
+        if cond_vec is not None:
+            # the JAX concatenation promotes the bf16 features to f32;
+            # enc_gru rounds both back to its compute dtype
+            f = torch.cat([f.float(), cond_vec], dim=-1)
+        h = torch.zeros(x.shape[0], self.spec.gru_hidden,
+                        dtype=self.compute_dtype, device=x.device)
+        for k in range(x.shape[1]):
             h = self.enc_gru(f[:, k], h)
+        if self.spec.kind == "hier":
+            return (*self.phrase_head(h), f)
         return self.z_head(h)
 
-    def forward(self, x: torch.Tensor,
-                eps: torch.Tensor) -> Tuple[torch.Tensor, Latents]:
-        """Teacher-forced ELBO forward: x [B,N,T,P], eps [B,z] N(0,1) noise
-        → (logits [B,N,T,P], [(mu, logvar)])."""
-        n = x.shape[1]
-        mu, logvar = self.encode(x)
-        z = reparameterize(mu, logvar, eps)
+    def forward(self, x: torch.Tensor, eps: Eps,
+                chord: Optional[torch.Tensor] = None,
+                key_sig: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Latents]:
+        """Teacher-forced ELBO forward: x [B,N,T,P] and ``eps``, the N(0,1)
+        noise of each latent level (``eps_shapes``: (eps_z [B,z],), or for
+        hier (eps_phrase [B,z_phrase], eps_bar [B,N,z]); a bare tensor is
+        the one level), chord [B,N] and key_sig [B] for cond → (logits
+        [B,N,T,P], [(mu, logvar) per level])."""
+        if isinstance(eps, torch.Tensor):
+            eps = (eps,)
+        b, n = x.shape[:2]
+        cond_vec = None
+        if self.spec.kind == "cond":
+            cond_vec = self.cond_vector(chord, key_sig)
+        if self.spec.kind == "hier":
+            mu_p, lv_p, f = self.encode(x)
+            z_phrase = reparameterize(mu_p, lv_p, eps[0])
+            zp_b = z_phrase[:, None, :].expand(-1, n, -1)
+            mu_b, lv_b = self.bar_head(torch.cat([f, zp_b.to(f.dtype)],
+                                                 dim=-1))
+            z_bars = reparameterize(mu_b, lv_b, eps[1])
+            logits = self.teacher(z_bars, x, z_phrase_bars=zp_b)
+            return logits, [(mu_p, lv_p), (mu_b, lv_b)]
+        mu, logvar = self.encode(x, cond_vec)
+        z = reparameterize(mu, logvar, eps[0])
         z_bars = z[:, None, :].expand(-1, n, -1)
-        return self.teacher(z_bars, x), [(mu, logvar)]
+        return self.teacher(z_bars, x, cond_vec), [(mu, logvar)]
 
     def generate(self, z_bars: torch.Tensor, reset: torch.Tensor,
                  seed_bar: Optional[torch.Tensor] = None,
                  uniforms: Union[torch.Tensor, torch.Generator,
                                  Sequence[torch.Generator], None] = None,
-                 sample_temperature: float = 1.0):
+                 sample_temperature: float = 1.0,
+                 chord: Optional[torch.Tensor] = None,
+                 key_sig: Optional[torch.Tensor] = None,
+                 z_phrase: Optional[torch.Tensor] = None):
         """Closed-loop generation: z_bars [B,N,z] per-bar latent path, reset
         [B,N] (1.0 at phrase starts), seed_bar [B,T,P] (the first prev-bar
         condition, zeros when None) → (logits [B,N,T,P], bars [B,N,T,P]
-        uint8).
+        uint8). cond takes chord [B,N] and key_sig [B]; hier takes
+        z_phrase, [B,z_phrase] for the whole sweep or a per-bar path
+        [B,N,z_phrase] (a phrase-identity morph).
 
         Bars are threshold-binarized unless ``uniforms`` is given: then
         each bar is a Bernoulli sample at ``sample_temperature`` from the
@@ -193,13 +381,33 @@ class PianoRollVAE(BarDecoder):
         by bar. A sequence of W generators splits the batch into W equal
         slots (coalesced requests): each bar, slot i's rows are drawn from
         generator i, as a lone sweep of B/W rows would draw them."""
+        spec = self.spec
         b, n = z_bars.shape[:2]
         t, p = self.midi.steps_per_bar, self.midi.num_pitches
+        dev = z_bars.device
+        cond_vec = zp = None
+        if spec.kind == "cond":
+            cond_vec = self.cond_vector(chord, key_sig)
+        if spec.kind == "hier":
+            if z_phrase is None:
+                raise ValueError("a hier model generates from a phrase "
+                                 "latent: pass z_phrase")
+            if z_phrase.dim() == 3 and tuple(z_phrase.shape[:2]) != (b, n):
+                raise ValueError(
+                    f"per-bar z_phrase path has shape "
+                    f"{tuple(z_phrase.shape)}; its leading axes must match "
+                    f"(batch, num_bars)=({b}, {n}) — a z_phrase1 morph path "
+                    f"must supply one phrase latent per generated bar")
+            zp = (z_phrase if z_phrase.dim() == 3 else
+                  z_phrase[:, None, :].expand(-1, n, -1))
         prev = (seed_bar.to(torch.uint8) if seed_bar is not None else
-                torch.zeros(b, t, p, dtype=torch.uint8,
-                            device=z_bars.device))
-        h = torch.zeros(b, self.spec.gru_hidden, dtype=self.compute_dtype,
-                        device=z_bars.device)
+                torch.zeros(b, t, p, dtype=torch.uint8, device=dev))
+        h = None
+        if spec.kind != "conv_bar":
+            h = torch.zeros(b, spec.gru_hidden, dtype=self.compute_dtype,
+                            device=dev)
+            if spec.kind == "hier":
+                h = (h, h)
         gens = None
         if isinstance(uniforms, torch.Generator):
             gens = [uniforms]
@@ -216,8 +424,10 @@ class PianoRollVAE(BarDecoder):
                 u = draws[0] if len(draws) == 1 else torch.cat(draws)
             else:
                 u = None if uniforms is None else uniforms[:, k]
-            h, logits, prev = self.step(h, prev, z_bars[:, k], reset[:, k],
-                                        u, sample_temperature)
+            h, logits, prev = self.step(
+                h, prev, z_bars[:, k], reset[:, k], u, sample_temperature,
+                None if cond_vec is None else cond_vec[:, k],
+                None if zp is None else zp[:, k])
             all_logits.append(logits)
             bars.append(prev)
         return torch.stack(all_logits, dim=1), torch.stack(bars, dim=1)
@@ -227,7 +437,8 @@ class PianoRollVAE(BarDecoder):
 def init_like_flax(model: nn.Module) -> None:
     """Redraw the parameters from the JAX package's initializers: flax's
     lecun-normal (truncated at two standard deviations) for every kernel,
-    orthogonal GRU recurrences, zero biases. The same distributions as
+    orthogonal GRU recurrences, zero biases, and flax ``nn.Embed``'s
+    normal embeddings (``layers.Embed``). The same distributions as
     ``musicvae_tpu.models.init_params``, not the same bits."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
@@ -244,6 +455,8 @@ def init_like_flax(model: nn.Module) -> None:
                 nn.init.orthogonal_(block)
             nn.init.zeros_(mod.bias_ih)
             nn.init.zeros_(mod.bias_hh)
+        elif isinstance(mod, layers.Embed):
+            mod.reset_parameters()
 
 
 def build_model(cfg: Config, device="cuda",

@@ -16,9 +16,11 @@ What differs from the JAX package, and why:
 - There is no jit: a K-step dispatch is a Python loop of eager steps with
   no host synchronisation inside (no ``.item()``, no host-made tensors).
   Metrics come back as device tensors and are read at log boundaries only.
-- Noise comes from the state's ``torch.Generator`` on the device; every
-  step function also takes ``eps`` (and ``shifts``) from the caller, which
-  is how the tests feed both packages the same numbers.
+- Noise comes from the state's ``torch.Generator`` on the device, in a
+  fixed order each step: the transpose shifts, then each latent level's
+  normals (``vae.draw_eps``: the phrase level, then the bar level, for
+  hier). Every step function also takes ``eps`` (and ``shifts``) from the
+  caller, which is how the tests feed both packages the same numbers.
 - The optimizer is a small Adam over ``torch._foreach`` ops that follows
   optax's arithmetic (``adam``/``adamw``, ``clip_by_global_norm``, the lr
   schedules, ``mu_dtype``), with its count on the device.
@@ -48,7 +50,7 @@ import torch
 from musicvae_tpu_torch.checkpoints import io as ckpt_io
 from musicvae_tpu_torch.config import Config
 from musicvae_tpu_torch.midi.tensorize import pitch_mask
-from musicvae_tpu_torch.models.vae import PianoRollVAE, build_model
+from musicvae_tpu_torch.models.vae import PianoRollVAE, build_model, draw_eps
 from musicvae_tpu_torch.ops import augment, fused_elbo, losses
 
 # cuBLAS is reproducible under torch.use_deterministic_algorithms only with
@@ -353,6 +355,15 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
     """The single-step update every step function shares:
     (state, batch, eps=None, shifts=None) → (state, metrics)."""
     t = cfg.train
+    cond = cfg.model.kind == "cond"
+    if t.transpose_aug and cond and (cfg.model.cond_chord_classes != 24
+                                     or cfg.model.cond_key_classes != 24):
+        raise ValueError(
+            "transpose_aug on a cond model rotates chord/key labels with "
+            "the pitch shift, which requires the 24-class root*2+minor "
+            "encoding (midi/labels.py); got "
+            f"{cfg.model.cond_chord_classes}/{cfg.model.cond_key_classes} "
+            "classes — an unknown encoding cannot be rotated safely")
     if t.transpose_aug < 0:
         raise ValueError(f"transpose_aug must be >= 0, got "
                          f"{t.transpose_aug}")
@@ -364,15 +375,16 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
     device = next(model.parameters()).device
     if use_pallas is None:
         use_pallas = t.use_pallas_loss and device.type == "cuda"
-    z_dim = cfg.model.z_dim
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   eps: Optional[torch.Tensor] = None,
-                   shifts: Optional[torch.Tensor] = None):
+                   eps=None, shifts: Optional[torch.Tensor] = None):
         if state.model is not model:
             raise ValueError("this step was built for another model than "
                              "the state's")
         x = batch["x"]
+        labels = {}
+        if cond:
+            labels = {"chord": batch["chord"], "key_sig": batch["key_sig"]}
         beta = losses.beta_schedule(state.step, t.beta_max,
                                     t.beta_warmup_steps, t.beta_hold_steps,
                                     t.beta_schedule, t.beta_cycle_steps)
@@ -382,10 +394,15 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
                 shifts = augment.random_shifts(state.generator, x.shape[0],
                                                t.transpose_aug)
             x = augment.transpose_rolls(x, shifts)
+            if cond:
+                # the labels transpose with the content
+                labels = {"chord": augment.rotate_chord_classes(
+                              labels["chord"], shifts[:, None]),
+                          "key_sig": augment.rotate_chord_classes(
+                              labels["key_sig"], shifts)}
         if eps is None:
-            eps = torch.randn((x.shape[0], z_dim), generator=state.generator,
-                              device=device)
-        logits, latents = model(x, eps)
+            eps = draw_eps(cfg.model, x.shape[0], state.generator)
+        logits, latents = model(x, eps, **labels)
         loss, metrics = elbo_from_outputs(cfg, logits, x, latents, beta,
                                           use_pallas, free_bits=t.free_bits,
                                           pallas_dual=True)
@@ -410,7 +427,9 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
 def make_train_step(cfg: Config, model: PianoRollVAE,
                     use_pallas: Optional[bool] = None) -> Callable:
     """(state, batch, eps=None, shifts=None) → (state, metrics), with
-    batch {"x": [B,N,T,P] uint8 or float}."""
+    batch {"x": [B,N,T,P] uint8 or float} and, for cond, "chord" [B,N]
+    and "key_sig" [B]; ``eps`` the noise of each latent level
+    (``vae.eps_shapes``), ``shifts`` [B] the transpose shifts."""
     return _train_step_body(cfg, model, use_pallas)
 
 
@@ -418,7 +437,9 @@ def _make_window_gather(cfg: Config) -> Callable:
     """(device data, [B] window ids) → batch dict, all on the device: the
     bar cache stays resident as uint8 with int32 window starts, and the
     gathered batch stays uint8 (the model's first conv casts to its
-    compute dtype and the loss reads uint8)."""
+    compute dtype and the loss reads uint8). With the window labels
+    resident too ("chords", "keys"), the batch carries "chord" (the
+    window's class over its N bars) and "key_sig"."""
     nb = cfg.model.num_bars
 
     def gather(data: Dict[str, torch.Tensor], idx: torch.Tensor):
@@ -427,7 +448,12 @@ def _make_window_gather(cfg: Config) -> Callable:
                                                  device=starts.device)
         bars = data["bars"]
         x = bars.index_select(0, bar_idx.reshape(-1))
-        return {"x": x.reshape(idx.shape[0], nb, *bars.shape[1:])}
+        batch = {"x": x.reshape(idx.shape[0], nb, *bars.shape[1:])}
+        if "chords" in data:
+            batch["chord"] = data["chords"].index_select(0, idx)[:, None] \
+                .expand(-1, nb)
+            batch["key_sig"] = data["keys"].index_select(0, idx)
+        return batch
 
     return gather
 
@@ -436,8 +462,9 @@ def make_train_step_indexed(cfg: Config, model: PianoRollVAE,
                             use_pallas: Optional[bool] = None) -> Callable:
     """Train step over a device-resident dataset: (state, data, idx,
     eps=None, shifts=None) → (state, metrics). ``data`` holds the corpus's
-    bars (uint8 [T,96,128]) and window ``starts`` (int32) on the device;
-    ``idx`` is a [B] int32 window-id vector, the only per-step transfer."""
+    bars (uint8 [T,96,128]) and window ``starts`` (int32) on the device,
+    and for cond the window labels ``chords`` and ``keys``; ``idx`` is a
+    [B] int32 window-id vector, the only per-step transfer."""
     single = _train_step_body(cfg, model, use_pallas)
     gather = _make_window_gather(cfg)
 
@@ -451,17 +478,22 @@ def make_train_step_indexed_multi(cfg: Config, model: PianoRollVAE,
                                   use_pallas: Optional[bool] = None
                                   ) -> Callable:
     """K device-resident indexed steps per call: (state, data, idxs [K,B],
-    eps=None [K,B,z], shifts=None [K,B]) → (state, last step's metrics as
-    device tensors). The body is exactly the single-step update, run
-    eagerly once per row of ``idxs`` with no host synchronisation in
-    between: the host enqueues ahead of the card."""
+    eps=None, shifts=None [K,B]) → (state, last step's metrics as device
+    tensors); ``eps`` is [K,B,z], or a tuple of one [K, ...] tensor a
+    latent level (hier: [K,B,z_phrase] and [K,B,N,z]). The body is
+    exactly the single-step update, run eagerly once per row of ``idxs``
+    with no host synchronisation in between: the host enqueues ahead of
+    the card."""
     single = make_train_step_indexed(cfg, model, use_pallas)
 
     def multi(state, data, idxs, eps=None, shifts=None):
         metrics: Dict[str, torch.Tensor] = {}
+        if isinstance(eps, torch.Tensor):
+            eps = (eps,)
         for j in range(idxs.shape[0]):
             state, metrics = single(
-                state, data, idxs[j], None if eps is None else eps[j],
+                state, data, idxs[j],
+                None if eps is None else tuple(e[j] for e in eps),
                 None if shifts is None else shifts[j])
         return state, metrics
 
@@ -641,14 +673,17 @@ def train(cfg: Config,
         def run_eval() -> Dict[str, float]:
             acc: Dict[str, list] = {}
             for i in range(n_eval_batches):
-                xb = _to_device(eval_data.batch(
-                    eval_perm[i * eb:(i + 1) * eb], x_dtype=np.uint8)["x"],
-                    dev)
-                eps = torch.randn(
-                    (xb.shape[0], cfg.model.z_dim), device=dev,
-                    generator=torch.Generator(dev).manual_seed(i))
+                batch = eval_data.batch(eval_perm[i * eb:(i + 1) * eb],
+                                        x_dtype=np.uint8)
+                xb = _to_device(batch["x"], dev)
+                labels = {}
+                if cfg.model.kind == "cond":
+                    labels = {k: _to_device(batch[k], dev)
+                              for k in ("chord", "key_sig")}
+                eps = draw_eps(cfg.model, xb.shape[0],
+                               torch.Generator(dev).manual_seed(i))
                 for prefix, fn in eval_fns:
-                    for mk, mv in fn(xb, eps).items():
+                    for mk, mv in fn(xb, eps, **labels).items():
                         acc.setdefault(prefix + mk, []).append(float(mv))
             return {mk: sum(mv) / len(mv) for mk, mv in acc.items()}
 
@@ -668,6 +703,9 @@ def train(cfg: Config,
     sizes = dispatch_sizes(start_step, num_steps, k)
     data_dev = {"bars": _to_device(data.bars, dev),
                 "starts": _to_device(data.starts, dev)}
+    if cfg.model.kind == "cond":
+        data_dev["chords"] = _to_device(data.chords, dev)
+        data_dev["keys"] = _to_device(data.keys, dev)
     multi_fn = make_train_step_indexed_multi(cfg, model)
     ids_for_step = make_id_schedule(cfg.train.seed, len(data), b)
 

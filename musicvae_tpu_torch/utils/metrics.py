@@ -67,14 +67,18 @@ def eval_metrics(cfg: Config, logits: torch.Tensor, x: torch.Tensor,
 
 
 def make_eval_fn(cfg: Config, model):
-    """Eval: (x [B,N,T,P], eps [B,z], weights=None) → {loss, recon, kl,
-    precision, recall, f1} as 0-d f32 tensors, from the one-sample ELBO
-    with the posterior noise ``eps`` given by the caller."""
+    """Eval: (x [B,N,T,P], eps, weights=None, chord=None, key_sig=None) →
+    {loss, recon, kl, precision, recall, f1} as 0-d f32 tensors, from the
+    one-sample ELBO with the posterior noise ``eps`` given by the caller
+    (one tensor a latent level, models/vae.py ``eps_shapes``). A cond
+    model takes the window labels chord [B,N] and key_sig [B]."""
 
     @torch.inference_mode()
-    def eval_fn(x: torch.Tensor, eps: torch.Tensor,
-                weights: Optional[torch.Tensor] = None):
-        logits, latents = model(x, eps)
+    def eval_fn(x: torch.Tensor, eps,
+                weights: Optional[torch.Tensor] = None,
+                chord: Optional[torch.Tensor] = None,
+                key_sig: Optional[torch.Tensor] = None):
+        logits, latents = model(x, eps, chord=chord, key_sig=key_sig)
         return eval_metrics(cfg, logits, x, latents, weights)
 
     return eval_fn

@@ -265,15 +265,20 @@ def test_preprocess_errors_match_jax(corpus, tmp_path, capsys, case):
       "{corpus}/bad_labels.json"], 2, "out of range 0..23"),
     (["train", "--midi-glob", "{corpus}/none*.mid"], 2,
      "no MIDI files match"),
-    (["generate", "--chord", "3"], 2, "--chord (ROADMAP.md item A9)"),
-    (["generate", "--key", "3"], 2, "--key (ROADMAP.md item A9)"),
+    # --chord/--key: range-checked on a cond model (random c4_cond weights
+    # here), ignored by the other kinds, as in the JAX package
+    (["generate", "--config", "c4_cond", "--ckpt-dir", "{corpus}/none",
+      "--chord", "24"], 2, "error: --chord 24 out of range 0..23"),
+    (["generate", "--chord", "3", "--key", "3", "--bars", "1"], 0,
+     "timing: sweep_ms="),
 ])
 def test_midi_command_errors(trained, corpus, tmp_path, capsys, argv, rc,
                              needle):
     _garbage(corpus)
     argv = [a.format(corpus=corpus) for a in argv]
     if argv[0] != "train":
-        argv += ["--ckpt-dir", trained[3]]
+        if "--ckpt-dir" not in argv:
+            argv += ["--ckpt-dir", trained[3]]
     else:
         argv += ["--ckpt-dir", tmp_path / "ck", "--log-dir", tmp_path]
     extra = (["--out-dir", tmp_path] if argv[0] in ("generate",

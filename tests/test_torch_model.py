@@ -85,7 +85,7 @@ def test_converter_no_prev_bar():
     PianoRollVAE(tc.model, tc.midi).load_state_dict(sd, strict=True)
 
 
-@pytest.mark.parametrize("name", ["c1_conv_bar", "c3_hier_16bar", "c4_cond",
+@pytest.mark.parametrize("name", ["c3_mxu", "c3_trf", "c2_mxu_wide",
                                   "c2_mxu", "c2_trf"])
 def test_unported_kinds_raise(name):
     _, tc = tiny_pair(name)

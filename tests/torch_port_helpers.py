@@ -122,3 +122,44 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# the other parity kinds at tiny widths: hier at 3 bars, hidden 16 and an
+# 8-wide phrase latent
+KINDS = ("c1_conv_bar", "c3_hier_16bar", "c4_cond")
+KIND_KW = {"c1_conv_bar": {},
+           "c3_hier_16bar": dict(num_bars=3, gru_hidden=16, z_phrase_dim=8),
+           "c4_cond": {}}
+
+
+def kind_pair(name: str, **model_kw):
+    """``tiny_pair`` of a registered config with its kind's tiny sizes."""
+    return tiny_pair(name, **{**KIND_KW.get(name, {}), **model_kw})
+
+
+def kind_inputs(rng: np.random.Generator, spec, b: int = 2,
+                density: float = 0.05):
+    """(x [B,N,T,P] f32, eps (one array a latent level), labels {} or
+    {"chord" [B,N], "key_sig" [B]} int32) for a model spec, numpy."""
+    x = bars(rng, (b, spec.num_bars, 96, 128), density)
+    if spec.kind == "hier":
+        eps = (rng.standard_normal((b, spec.z_phrase_dim)),
+               rng.standard_normal((b, spec.num_bars, spec.z_dim)))
+    else:
+        eps = (rng.standard_normal((b, spec.z_dim)),)
+    eps = tuple(e.astype(np.float32) for e in eps)
+    labels = {}
+    if spec.kind == "cond":
+        labels = {"chord": rng.integers(0, spec.cond_chord_classes,
+                                        (b, spec.num_bars)).astype(np.int32),
+                  "key_sig": rng.integers(0, spec.cond_key_classes,
+                                          (b,)).astype(np.int32)}
+    return x, eps, labels
+
+
+def to_jax(tree):
+    return jax.tree.map(jax.numpy.asarray, tree)
+
+
+def to_torch(tree):
+    return jax.tree.map(torch.tensor, tree)
