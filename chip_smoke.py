@@ -73,7 +73,23 @@ check does not hold:
    same bits. Then c5_gen_sweep's registered 1,024 x 64-bar interpolation
    sweep once (4 samples to MIDI), and K1, K1b, K2 and K4 at the kinds'
    shapes (M = 2,048, 1,024 and C1's f32 M = 16; n = 25.2 M and 12.6 M)
-   against their plain versions, timed beside their bounds.
+   against their plain versions, timed beside their bounds;
+12. patch_attn: the patch stem and the attention core at full registered
+   width, the first-conv flag on (the patch stem ignores it: K1 and K1b
+   must not launch): c2_trf (bf16, 64 x 4 bars, attention 2 x 8 heads at
+   width 512), c3_trf (128 x 16 bars, hier with attention) and c2_mxu
+   (the patch stem with the GRU) each train 20 steps through ``train()``
+   on a seeded resident cache (K4 a step, K2 an eval batch; the loss must
+   fall; c2_trf repeated bit for bit), then steps/s, launches and kernel
+   time a step and the device-busy share; f32 on the card against the
+   CPU; the f32 closed loop (4 x 8 bars, one reset) against the
+   teacher-forced decode of its own bars, within 1e-4; 4 x 16 bars
+   generated; 8 serve requests serial and ``--coalesce 4`` under the
+   flip rule; ``convert --to-safetensors`` refuses c2_trf's checkpoint.
+   Then c2_mxu_wide, c3_mxu, c2_mxu_16bar and c2_trf_32bar 5 steps each
+   (K4 a step), one 4 x 32-bar c2_trf_32bar sweep (a 32-position KV
+   cache), and K4 at the 16/32-bar configs' n = 6,291,456 against its
+   plain version, timed beside its bound.
 
 The last lines are a "details:" JSON line with every check and timing,
 the card's name and power limit, the kernels JSON object, and
@@ -2650,8 +2666,8 @@ def _kind_requests(name: str, seed: int):
     return reqs
 
 
-def _kind_train(cfg, train_ds, eval_ds, dev):
-    """One ``train()`` run of KIND_STEPS steps: (model, state, logged,
+def _kind_train(cfg, train_ds, eval_ds, dev, steps: int = KIND_STEPS):
+    """One ``train()`` run of ``steps`` steps: (model, state, logged,
     launches, seconds with start-up)."""
     from musicvae_tpu_torch.ops import _kernels
     from musicvae_tpu_torch.train import trainer
@@ -2661,11 +2677,11 @@ def _kind_train(cfg, train_ds, eval_ds, dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, state, _ = trainer.train(
-        cfg, train_ds, num_steps=KIND_STEPS, eval_data=eval_ds,
+        cfg, train_ds, num_steps=steps, eval_data=eval_ds,
         log_fn=lambda s, m: logged.append((s, m)), device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    check(int(state.step) == KIND_STEPS, f"state.step {int(state.step)}")
+    check(int(state.step) == steps, f"state.step {int(state.step)}")
     return model, state, logged, dict(_kernels.LAUNCHES), dt
 
 
@@ -2795,7 +2811,7 @@ def _kinds_kernel_shapes(seed: int, dev: torch.device, card: str) -> dict:
     Returns {kernel: [shape rows]}."""
     import torch.nn.functional as F
 
-    from musicvae_tpu_torch.ops import conv1, fused_elbo, losses
+    from musicvae_tpu_torch.ops import conv1
 
     g = torch.Generator(dev).manual_seed(seed + 90)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -2805,17 +2821,8 @@ def _kinds_kernel_shapes(seed: int, dev: torch.device, card: str) -> dict:
     rows = {"first_conv_s2": [], "first_conv_s2_bwd": [],
             "masked_bce_sum": [], "masked_bce_sum_dual": []}
 
-    def row(kernel, label, err, ms, plain, lib, nbytes, ops, **extra):
-        bms, by = bound_ms(nbytes, ops)
-        r = {"name": f"{kernel} ({label})", "max_abs_err": err, "ms": ms,
-             "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-             "bound_by": by, "bound_share": bms / ms, **extra}
-        rows[kernel].append(r)
-        log(f"kinds kernel {r['name']} ({card}): kernel {ms * 1e3:.2f} us, "
-            f"plain {plain * 1e3:.2f} us, library "
-            f"{'none' if lib is None else f'{lib * 1e3:.2f} us'}, bound "
-            f"{bms * 1e3:.2f} us ({by}, share {bms / ms:.3f}), max abs "
-            f"err {err:.3e}")
+    def row(*args, **extra):
+        _shape_row(rows, "kinds", card, *args, **extra)
 
     for label, m, out_dtype in (("C3 train, M=2048", 2048, torch.bfloat16),
                                 ("C4 train, M=1024", 1024, torch.bfloat16),
@@ -2872,14 +2879,45 @@ def _kinds_kernel_shapes(seed: int, dev: torch.device, card: str) -> dict:
             x.numel() + osize * dy.numel() + 4 * 2 * (w.numel() + b.numel()),
             dy.numel() * (2 * 9 + 2 * 9 + 12))
 
+    _bce_shape_rows(g, dev, flush, row, (
+        ("C3 train, [128,16,96,128]", (128, 16, 96, 128),
+         ("masked_bce_sum_dual",)),
+        ("C4 train, [256,4,96,128]", (256, 4, 96, 128),
+         ("masked_bce_sum_dual",)),
+        ("C3 eval, [128,16,96,128]", (128, 16, 96, 128),
+         ("masked_bce_sum",))))
+    return rows
+
+
+def _shape_row(rows, phase, card, kernel, label, err, ms, plain, lib,
+               nbytes, ops, **extra):
+    """One kernel-at-a-shape row: its times beside its bound from
+    ``nbytes`` and ``ops``, appended to ``rows[kernel]`` and logged."""
+    bms, by = bound_ms(nbytes, ops)
+    r = {"name": f"{kernel} ({label})", "max_abs_err": err, "ms": ms,
+         "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+         "bound_by": by, "bound_share": bms / ms, **extra}
+    rows[kernel].append(r)
+    log(f"{phase} kernel {r['name']} ({card}): kernel {ms * 1e3:.2f} us, "
+        f"plain {plain * 1e3:.2f} us, library "
+        f"{'none' if lib is None else f'{lib * 1e3:.2f} us'}, bound "
+        f"{bms * 1e3:.2f} us ({by}, share {bms / ms:.3f}), max abs "
+        f"err {err:.3e}")
+
+
+def _bce_shape_rows(g, dev, flush, row, cases) -> None:
+    """K4 (masked_bce_sum_dual) and K2 (masked_bce_sum) at each case's
+    [B,N,96,128] shape against the plain BCE: the sum within 1e-5
+    relative, the same bits on a second call (the fixed-order finish), K4's
+    gradient tile within 1e-6; then timed from a cold L2 beside the plain
+    version under autograd (K4) or not (K2) and one library call, each
+    passed to ``row``."""
+    import torch.nn.functional as F
+
+    from musicvae_tpu_torch.ops import fused_elbo, losses
+
     full = torch.ones(128, device=dev)
-    for label, shape, kernels in (
-            ("C3 train, [128,16,96,128]", (128, 16, 96, 128),
-             ("masked_bce_sum_dual",)),
-            ("C4 train, [256,4,96,128]", (256, 4, 96, 128),
-             ("masked_bce_sum_dual",)),
-            ("C3 eval, [128,16,96,128]", (128, 16, 96, 128),
-             ("masked_bce_sum",))):
+    for label, shape, kernels in cases:
         logits = 3.0 * torch.randn(shape, generator=g, device=dev)
         xb = torch.rand(shape, generator=g, device=dev) < 0.05
         xu8, xf = xb.to(torch.uint8), xb.to(torch.float32)
@@ -2930,7 +2968,6 @@ def _kinds_kernel_shapes(seed: int, dev: torch.device, card: str) -> dict:
                             flush),
                         4 * n + n + 4 * 128 + 4, 9 * n, **extra)
         del logits, xb, xu8, xf
-    return rows
 
 
 def kinds_phase(seed: int, dev: torch.device, card: str):
@@ -3106,6 +3143,214 @@ def kinds_phase(seed: int, dev: torch.device, card: str):
     return {"kinds": total}, out
 
 
+PA_NAMES = ("c2_trf", "c3_trf", "c2_mxu")     # full width, 20 steps each
+PA_SHORT = ("c2_mxu_wide", "c3_mxu", "c2_mxu_16bar", "c2_trf_32bar")
+PA_SHORT_STEPS = 5
+PA_LOOP_BARS = 8         # closed loop vs teacher: 4 x 8 bars, f32
+PA_LOOP_TOL = 1e-4
+
+
+def _closed_loop_vs_teacher(name: str, seed: int, dev) -> dict:
+    """The registered config in f32 on the card: GEN_SAMPLES x
+    PA_LOOP_BARS bars generated with one reset at bar 0, then
+    teacher-decoded with the same z (and phrase latent): the same
+    function, logits within PA_LOOP_TOL."""
+    from musicvae_tpu_torch.config import get_config
+    from musicvae_tpu_torch.models.vae import build_model
+
+    cfg = get_config(name)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"))
+    spec, b, n = cfg.model, GEN_SAMPLES, PA_LOOP_BARS
+    model = build_model(cfg, device=dev, seed=seed)
+    g = torch.Generator(dev).manual_seed(seed + 5)
+    z = torch.randn((b, n, spec.z_dim), generator=g, device=dev)
+    reset = torch.zeros((b, n), device=dev)
+    reset[:, 0] = 1.0
+    zp = zp_bars = None
+    if spec.kind == "hier":
+        zp = torch.randn((b, spec.z_phrase_dim), generator=g, device=dev)
+        zp_bars = zp[:, None].expand(-1, n, -1)
+    with torch.inference_mode():
+        logits, bars = model.generate(z, reset, z_phrase=zp)
+        teacher = model.teacher(z, bars.float(), z_phrase_bars=zp_bars)
+    err = float((logits - teacher).abs().max())
+    log(f"patch_attn {name}: f32 closed loop vs teacher on the card, "
+        f"{b} x {n} bars: logits max abs diff {err:.3e}")
+    check(err <= PA_LOOP_TOL, f"{name}: closed loop and teacher disagree: "
+                              f"{err}")
+    return {"logits_max_abs_diff": err, "bars": n, "samples": b,
+            "density": float(bars.float().mean())}
+
+
+def patch_attn_phase(seed: int, dev: torch.device, card: str):
+    """The patch stem and the attention core at full registered width on
+    the card, random weights from the seed, the first-conv flag on (the
+    patch stem ignores it: K1 and K1b must never launch). c2_trf (bf16,
+    64 x 4 bars), c3_trf (128 x 16) and c2_mxu (64 x 4) each: (a) 20
+    steps through ``train()`` on a seeded resident cache, an eval every
+    10 (K4 a step, K2 an eval batch), the loss finite and falling, c2_trf
+    repeated bit for bit; (b) steps/s, launches and kernel time a step,
+    device-busy share; (c) f32 on the card against the CPU, and the f32
+    closed loop against the teacher-forced decode; (d) 4 x 16 bars
+    generated, 8 serve requests serial and --coalesce 4 under the flip
+    rule; c2_trf's checkpoint refused by ``convert --to-safetensors``.
+    Then c2_mxu_wide, c3_mxu, c2_mxu_16bar and c2_trf_32bar 5 steps each
+    (K4 a step), a 32-bar c2_trf_32bar sweep (a 32-position KV cache),
+    and K4 at the 16- and 32-bar configs' n = 6,291,456 against its plain
+    version, timed."""
+    import shutil
+    import tempfile
+
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.config import GenSpec
+    from musicvae_tpu_torch.generate import sampler
+    from musicvae_tpu_torch.ops import _kernels
+
+    _kernels.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="patch_attn_smoke_",
+                            dir=_kernels.BUILD_ROOT.parent)
+    out, total = {"card": card}, {k: 0 for k in _kernels.LAUNCHES}
+    t_phase = time.perf_counter()
+
+    def counted(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    try:
+        for name in PA_NAMES:
+            t_name = time.perf_counter()
+            cfg = _kind_config(name, seed)
+            nb = cfg.model.num_bars
+            train_ds, eval_ds = _kind_cache(seed, nb).split(0.1, seed=seed)
+            res = {"windows": len(train_ds), "batch": cfg.train.batch_size,
+                   "num_bars": nb, "dtype": cfg.model.dtype}
+            model, state, logged, launches, dt = _kind_train(
+                cfg, train_ds, eval_ds, dev)
+            counted(launches)
+            steps = [m for _, m in logged if "loss" in m]
+            evals = [m for _, m in logged if "eval_loss" in m]
+            losses_ = [m["loss"] for m in steps]
+            check(len(steps) == KIND_STEPS // KIND_K and len(evals) == 2,
+                  f"{name}: logged {len(steps)} steps, {len(evals)} evals")
+            check(all(np.isfinite(v) for m in steps + evals
+                      for v in m.values()), f"{name}: a metric not finite")
+            check(losses_[-1] < losses_[0], f"{name}: the loss did not "
+                                            f"fall: {losses_}")
+            want = {"masked_bce_sum_dual": KIND_STEPS,
+                    "masked_bce_sum": len(evals), "first_conv_s2": 0,
+                    "first_conv_s2_bwd": 0}
+            check(all(launches[k] == v for k, v in want.items()),
+                  f"{name}: train launches {launches}, expected {want}")
+            res.update(train_launches=launches, losses=losses_,
+                       eval_loss=[m["eval_loss"] for m in evals],
+                       train_seconds_with_startup=dt)
+            log(f"patch_attn {name} train: losses {losses_}, evals "
+                f"{res['eval_loss']}, launches {launches}, {dt:.2f} s")
+            if name == "c2_trf":
+                model_b, _, logged_b, launches_b, _ = _kind_train(
+                    cfg, train_ds, eval_ds, dev)
+                counted(launches_b)
+                same = ([m for _, m in logged] == [m for _, m in logged_b]
+                        and all(torch.equal(a, b) for a, b in zip(
+                            model.parameters(), model_b.parameters())))
+                res["repeat_same_bits"] = same
+                log(f"patch_attn {name} repeated run: same bits {same}")
+                check(same, f"{name}: a repeated run differs")
+                del model_b
+            ck = os.path.join(root, name)
+            check(ckpt_io.save(ckpt_io.make_manager(ck), state, cfg,
+                               wait=True), f"{name}: not saved")
+            res["timing"] = _kind_timing(cfg, state, train_ds, dev, seed)
+            log(f"patch_attn {name} train timing ({card}): {res['timing']}")
+            res["reference"] = reference_check(seed, dev, name)
+            res["closed_loop"] = _closed_loop_vs_teacher(name, seed, dev)
+
+            gcfg = cfg.replace(gen=GenSpec(num_bars=GEN_BARS,
+                                           num_samples=GEN_SAMPLES))
+            _kernels.reset_launches()
+            bars = sampler.make_generate_fn(gcfg, model)(
+                sampler.seed_generator(seed, dev))
+            torch.cuda.synchronize()
+            gen_launches = dict(_kernels.LAUNCHES)
+            counted(gen_launches)
+            check(tuple(bars.shape) == (GEN_SAMPLES, GEN_BARS, 96, 128)
+                  and sum(gen_launches.values()) == 0,
+                  f"{name}: generated {tuple(bars.shape)}, launches "
+                  f"{gen_launches}")
+            res["generate"] = {"density": float(bars.float().mean())}
+            _kernels.reset_launches()
+            res["serve"] = _kind_serve(name, gcfg, model, dev, seed)
+            torch.cuda.synchronize()
+            counted(dict(_kernels.LAUNCHES))
+            log(f"patch_attn {name} serve ({card}): {res['serve']}")
+            if name == "c2_trf":
+                st = os.path.join(root, "c2_trf.safetensors")
+                rc, _, e = _cli(["convert", "--to-safetensors", ck, "--out",
+                                 st])
+                res["convert_refused"] = (rc == 2 and "patch stem" in e
+                                          and not os.path.exists(st))
+                log(f"patch_attn {name} convert: rc {rc}, {e.strip()}")
+                check(res["convert_refused"],
+                      f"{name}: convert did not refuse: rc {rc}, {e}")
+            res["seconds"] = time.perf_counter() - t_name
+            out[name] = res
+            del model, state
+            torch.cuda.empty_cache()
+
+        for name in PA_SHORT:
+            t_name = time.perf_counter()
+            cfg = _kind_config(name, seed)
+            cfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, num_steps=PA_SHORT_STEPS,
+                log_every=PA_SHORT_STEPS, eval_every=0))
+            nb = cfg.model.num_bars
+            model, state, logged, launches, dt = _kind_train(
+                cfg, _kind_cache(seed, nb), None, dev, PA_SHORT_STEPS)
+            counted(launches)
+            loss = [m["loss"] for _, m in logged if "loss" in m]
+            check(launches["masked_bce_sum_dual"] == PA_SHORT_STEPS
+                  and launches["first_conv_s2"] == 0
+                  and len(loss) == 1 and np.isfinite(loss[0]),
+                  f"{name}: launches {launches}, loss {loss}")
+            res = {"batch": cfg.train.batch_size, "num_bars": nb,
+                   "loss": loss[0], "train_launches": launches,
+                   "train_seconds_with_startup": dt}
+            if name == "c2_trf_32bar":
+                gcfg = cfg.replace(gen=GenSpec(num_bars=nb,
+                                               num_samples=GEN_SAMPLES))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bars = sampler.make_generate_fn(gcfg, model)(
+                    sampler.seed_generator(seed, dev))
+                torch.cuda.synchronize()
+                check(tuple(bars.shape) == (GEN_SAMPLES, nb, 96, 128),
+                      f"{name}: swept {tuple(bars.shape)}")
+                res["sweep"] = {"samples": GEN_SAMPLES, "bars": nb,
+                                "seconds": time.perf_counter() - t0,
+                                "density": float(bars.float().mean())}
+            res["seconds"] = time.perf_counter() - t_name
+            log(f"patch_attn {name} ({card}): {res}")
+            out[name] = res
+            del model, state
+            torch.cuda.empty_cache()
+
+        rows = {"masked_bce_sum_dual": []}
+        _bce_shape_rows(
+            torch.Generator(dev).manual_seed(seed + 91), dev,
+            torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev),
+            lambda *a, **kw: _shape_row(rows, "patch_attn", card, *a, **kw),
+            (("c2_{mxu,trf}_{16,32}bar train, [32,16,96,128]",
+              (32, 16, 96, 128), ("masked_bce_sum_dual",)),))
+        out["kernel_shapes"] = rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"patch_attn launches: {total}")
+    log(f"patch_attn phase: {out['seconds']:.1f} s")
+    return {"patch_attn": total}, out
+
+
 def profile_phase(seed: int, dev: torch.device):
     """Development aid, not part of the default run: where one train
     step's time goes. Which parts of a step the launch queue can hold
@@ -3192,7 +3437,7 @@ def profile_phase(seed: int, dev: torch.device):
 
 
 PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train",
-          "ckpt", "corpus", "serve_stack", "kinds")
+          "ckpt", "corpus", "serve_stack", "kinds", "patch_attn")
 
 
 def main() -> int:
@@ -3261,6 +3506,15 @@ def main() -> int:
             rows = shapes.get(e["name"].split()[0])
             if rows:
                 e["kinds_shapes"] = rows
+    if "patch_attn" in only:
+        pa_runs, details["patch_attn"] = patch_attn_phase(args.seed, dev,
+                                                          card)
+        runs.update(pa_runs)
+        for e in entries:
+            rows = details["patch_attn"]["kernel_shapes"].get(
+                e["name"].split()[0])
+            if rows:
+                e["patch_attn_shapes"] = rows
     if "profile" in only:
         details["profile"] = profile_phase(args.seed, dev)
 

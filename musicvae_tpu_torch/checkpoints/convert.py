@@ -2,12 +2,12 @@
 the port's layouts.
 
 The port's own copy of the flax → torch direction of the JAX package's
-checkpoints/torch_convert.py, for the four parity kinds, and
-``canonical_state_dict``, which checks a torch state dict against a config
-and brings it to the form that round trip gives. Its output
-equals ``flax_params_to_torch_state_dict`` key for key (the names are the
-torch oracle's), and ``PianoRollVAE.load_state_dict(strict=True)`` takes
-it as it is. Layouts:
+checkpoints/torch_convert.py, and ``canonical_state_dict``, which checks a
+torch state dict against a config and brings it to the form that round
+trip gives. For the parity configs (stem "conv", temporal "gru") the
+output equals ``flax_params_to_torch_state_dict`` key for key (the names
+are the torch oracle's), and ``PianoRollVAE.load_state_dict(strict=True)``
+takes it as it is. Layouts:
 
 - flax Conv kernel (kh,kw,in,out)            → Conv2d (out,in,kh,kw)
 - flax ConvTranspose(transpose_kernel=True)
@@ -16,6 +16,23 @@ it as it is. Layouts:
 - GRUCell {ir,iz,in,hr,hz,hn}                → weight_ih=[Wr;Wz;Wn],
   weight_hh=[Ur;Uz;Un], bias_ih=[b_ir;b_iz;b_in], bias_hh=[0;0;b_hn]
 - Embed {embedding} (classes,features)       → Embedding weight, as it is
+- LayerNorm {scale, bias}                    → weight, bias
+
+The patch stem and the attention core have no torch oracle: the port's
+names mirror flax's, and only this function carries them (the weight
+carry of import_orbax_checkpoint.py and the tests), while
+``canonical_state_dict`` refuses them as the JAX package's
+``torch_convert`` does. Their names:
+
+- ``<bar feat>/PatchTrunk_0/Conv_i``         → ``<bar feat>.convs.i``
+  (``enc_trunk/Conv_i`` → ``enc_trunk.convs.i`` for conv_bar)
+- ``decoder/head/{Dense_0, ConvTranspose_i, Conv_0}``
+                                             → ``head.{fc, deconvs.i, out}``
+- ``enc_attn`` and ``decoder/seq_attn``: ``inp``, ``pos_emb``, ``ln1_l``,
+  ``ln2_l``, ``qkv_l``, ``wo_l``, ``mlp_up_l``, ``mlp_dn_l``, ``ln_f``
+                                             → ``enc_attn`` / ``seq_attn``
+  ``.inp``, ``.pos_emb``, ``.ln1.l``, ``.ln2.l``, ``.qkv.l``, ``.wo.l``,
+  ``.mlp_up.l``, ``.mlp_dn.l``, ``.ln_f``
 """
 
 from __future__ import annotations
@@ -34,6 +51,30 @@ class StateDictMismatch(ValueError):
     model."""
 
 
+class UnconvertibleConfig(ValueError):
+    """A config whose weights have no torch oracle names to convert to or
+    from."""
+
+
+def require_parity_config(cfg: Config) -> None:
+    """The JAX package's ``_require_conv_stem``: torch and safetensors
+    files carry the oracle's names, which exist for the parity configs
+    only."""
+    if cfg.model.stem != "conv":
+        raise UnconvertibleConfig(
+            f"config {cfg.name!r} uses the MXU patch stem "
+            f"(ModelSpec.stem={cfg.model.stem!r}) — a beyond-reference "
+            "architecture with no torch twin; checkpoint conversion "
+            "applies to the parity configs (stem='conv') only")
+    if cfg.model.temporal != "gru":
+        raise UnconvertibleConfig(
+            f"config {cfg.name!r} uses the attention temporal core "
+            f"(ModelSpec.temporal={cfg.model.temporal!r}) — a "
+            "beyond-reference architecture with no torch twin; checkpoint "
+            "conversion applies to the parity configs (temporal='gru') "
+            "only")
+
+
 def canonical_state_dict(sd: Dict[str, Any],
                          cfg: Config) -> Dict[str, torch.Tensor]:
     """A torch state dict (the oracle's names: a ``--to-torch`` export, or
@@ -47,8 +88,11 @@ def canonical_state_dict(sd: Dict[str, Any],
     keeps one bias there, so this is what the JAX package's
     ``torch_state_dict_to_flax`` → ``flax_params_to_torch_state_dict``
     round trip gives, bit for bit (the sum in the file's dtype, then the
-    cast to f32)."""
-    check_supported(cfg.model)
+    cast to f32).
+
+    The patch stem and the attention core are refused with the JAX
+    package's words (``require_parity_config``)."""
+    require_parity_config(cfg)
     with torch.device("meta"):
         want = {n: tuple(t.shape) for n, t in
                 PianoRollVAE(cfg.model, cfg.midi).state_dict().items()}
@@ -96,9 +140,13 @@ def flax_params_to_state_dict(params: Dict[str, Any],
         out[f"{name}.weight"] = t(np.asarray(p["kernel"]).T)
         out[f"{name}.bias"] = t(p["bias"])
 
-    def put_barfeat(name, p):
-        for key, sub in p["ConvTrunk_0"].items():
+    def put_trunk(name, p):
+        for key, sub in p.items():
             put_conv(f"{name}.convs.{key.split('_')[1]}", sub)
+
+    def put_barfeat(name, p):
+        put_trunk(name, p["PatchTrunk_0" if "PatchTrunk_0" in p
+                          else "ConvTrunk_0"])
         put_dense(f"{name}.fc", p["Dense_0"])
 
     def put_head(name, p):
@@ -106,6 +154,23 @@ def flax_params_to_state_dict(params: Dict[str, Any],
         for key, sub in p.items():
             if key.startswith("ConvTranspose_"):
                 put_conv(f"{name}.deconvs.{key.split('_')[1]}", sub)
+        if "Conv_0" in p:                               # the patch head
+            put_conv(f"{name}.out", p["Conv_0"])
+
+    def put_attn(name, p):
+        put_dense(f"{name}.inp", p["inp"])
+        out[f"{name}.pos_emb"] = t(p["pos_emb"])
+        for key, sub in p.items():
+            layer, _, l = key.rpartition("_")
+            if layer in ("ln1", "ln2"):
+                put_ln(f"{name}.{layer}.{l}", sub)
+            elif layer in ("qkv", "wo", "mlp_up", "mlp_dn"):
+                put_dense(f"{name}.{layer}.{l}", sub)
+        put_ln(f"{name}.ln_f", p["ln_f"])
+
+    def put_ln(name, p):
+        out[f"{name}.weight"] = t(p["scale"])
+        out[f"{name}.bias"] = t(p["bias"])
 
     def put_gru(name, p):
         h = np.asarray(p["hr"]["kernel"]).shape[0]
@@ -121,27 +186,34 @@ def flax_params_to_state_dict(params: Dict[str, Any],
             [np.zeros(2 * h, np.float32), np.asarray(p["hn"]["bias"])]))
 
     spec = cfg.model
+    attn = spec.temporal == "attn"
     dec = params["decoder"]
     if spec.kind == "conv_bar":
-        for key, sub in params["enc_trunk"].items():
-            put_conv(f"enc_trunk.convs.{key.split('_')[1]}", sub)
+        put_trunk("enc_trunk", params["enc_trunk"])
         put_dense("z_head", params["z_head"]["Dense_0"])
         put_head("head", dec["head"])
         if spec.use_prev_bar:
             put_barfeat("prev_feat", dec["prev_feat"])
         return out
     put_barfeat("enc_feat", params["enc_feat"])
-    put_gru("enc_gru", params["enc_gru"]["GRUCell_0"])
-    put_dense("h_init", dec["h_init"])
+    if attn:
+        put_attn("enc_attn", params["enc_attn"])
+    else:
+        put_gru("enc_gru", params["enc_gru"]["GRUCell_0"])
+        put_dense("h_init", dec["h_init"])
     if spec.use_prev_bar:
         put_barfeat("prev_feat", dec["prev_feat"])
-    put_gru("dec_gru", dec["seq_gru"])
+    if attn:
+        put_attn("seq_attn", dec["seq_attn"])
+    else:
+        put_gru("dec_gru", dec["seq_gru"])
     put_head("head", dec["head"])
     if spec.kind == "hier":
         put_dense("phrase_head", params["phrase_head"]["Dense_0"])
         put_dense("bar_head", params["bar_head"]["Dense_0"])
-        put_dense("cond_init", dec["cond_init"])
-        put_gru("conductor", dec["conductor"])
+        if not attn:
+            put_dense("cond_init", dec["cond_init"])
+            put_gru("conductor", dec["conductor"])
     else:
         put_dense("z_head", params["z_head"]["Dense_0"])
     if spec.kind == "cond":

@@ -1652,7 +1652,7 @@ def cmd_describe(args: argparse.Namespace) -> int:
     import glob
 
     from musicvae_tpu_torch.checkpoints import io as ckpt_io
-    from musicvae_tpu_torch.models.layers import GRUCell
+    from musicvae_tpu_torch.models.vae import param_count
 
     if not os.path.isdir(args.ckpt_dir):
         print(f"error: no checkpoint in {args.ckpt_dir}", file=sys.stderr)
@@ -1665,9 +1665,7 @@ def cmd_describe(args: argparse.Namespace) -> int:
     cfg = ckpt_io.restore_config(manager)
     with torch.device("meta"):
         model = PianoRollVAE(cfg.model, cfg.midi, cfg.train.remat_encoder)
-    n_params = sum(p.numel() for p in model.parameters()) - sum(
-        2 * m.weight_hh.shape[1] for m in model.modules()
-        if isinstance(m, GRUCell))
+    n_params = param_count(model)
     quarantined = sorted(
         os.path.basename(p) for pat in ("*.corrupt", "*.corrupt.*")
         for p in glob.glob(os.path.join(args.ckpt_dir, pat)))
@@ -1728,11 +1726,13 @@ def cmd_convert(args: argparse.Namespace) -> int:
     with a fresh optimizer at --step; optimizer moments do not convert. A
     JAX (Orbax) checkpoint comes in through import_orbax_checkpoint.py,
     and an export goes to Orbax through the JAX package's own ``convert
-    --from-torch``."""
+    --from-torch``. Configs with the patch stem or the attention core
+    have no oracle names and are refused, as the JAX package refuses
+    them."""
     from musicvae_tpu_torch.checkpoints import io as ckpt_io
     from musicvae_tpu_torch.checkpoints import safetensors_io
-    from musicvae_tpu_torch.checkpoints.convert import (StateDictMismatch,
-                                                        canonical_state_dict)
+    from musicvae_tpu_torch.checkpoints.convert import (
+        StateDictMismatch, UnconvertibleConfig, canonical_state_dict)
     from musicvae_tpu_torch.train.trainer import init_state
 
     sources = [args.from_torch, args.to_torch, args.from_safetensors,
@@ -1747,7 +1747,7 @@ def cmd_convert(args: argparse.Namespace) -> int:
         cfg = _apply_midi_overrides(get_config(args.config), args)
         try:
             sd = canonical_state_dict(_read_torch_state_dict(args), cfg)
-        except StateDictMismatch as e:
+        except (StateDictMismatch, UnconvertibleConfig) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
         model = build_model(cfg, device=args.device)
@@ -1770,7 +1770,11 @@ def cmd_convert(args: argparse.Namespace) -> int:
     model = _ema_model(state) if args.ema else state.model
     if model is None:
         return 2
-    sd = canonical_state_dict(model.state_dict(), cfg)
+    try:
+        sd = canonical_state_dict(model.state_dict(), cfg)
+    except UnconvertibleConfig as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     step = int(state.step)
     if args.to_torch:
         torch.save(sd, args.out)

@@ -62,14 +62,16 @@ class ModelSpec:
     z_phrase_dim: int = 256              # phrase-level latent (hier only)
     enc_channels: Tuple[int, ...] = (16, 32, 64, 128, 128)
     dec_channels: Tuple[int, ...] = (128, 128, 64, 32, 16)
-    # "conv": the parity pyramid (the port's models/layers.py). "patch":
-    # the space-to-depth stem/head, not yet ported.
+    # "conv": the parity pyramid. "patch": the space-to-depth stem and
+    # head over patch_size patches (models/layers.py), enc_channels the
+    # patch stack's widths (first conv stride 1) and dec_channels the
+    # head's.
     stem: str = "conv"
     patch_size: Tuple[int, int] = (8, 16)
     bar_feat_dim: int = 256              # per-bar feature vector (GRU input)
-    gru_hidden: int = 256                # sequence/conductor GRU width
-    # Temporal core over the bar axis: "gru" (ported) or "attn" (the
-    # attention core, not yet ported).
+    gru_hidden: int = 256                # temporal core / conductor width
+    # Temporal core over the bar axis: "gru", or "attn" (a pre-LN
+    # transformer, causal in the decoder; hier then has no conductor).
     temporal: str = "gru"
     attn_layers: int = 2                 # transformer depth (temporal="attn")
     attn_heads: int = 4                  # attention heads

@@ -1,8 +1,13 @@
-"""Building blocks of the parity (``stem="conv"``, ``temporal="gru"``) VAEs.
+"""Building blocks of the VAE family: the parity conv stem and the GRU
+cell, the space-to-depth patch stem (``stem="patch"``: ``ConvTrunk`` with
+a ``patch``, ``PatchHead``) and the attention core (``temporal="attn"``:
+``AttnStack``).
 
-Counterparts of the JAX package's models/layers.py, with the state-dict
-names of the torch oracle (tests/oracle/oracle_model.py), so converted JAX
-params load with ``strict=True``.
+Counterparts of the JAX package's models/layers.py. The parity modules
+carry the state-dict names of the torch oracle
+(tests/oracle/oracle_model.py), so converted JAX params load with
+``strict=True``; the patch stem and the attention core, which have no
+oracle, mirror their flax names (checkpoints/convert.py lists them).
 
 Dtypes follow flax's ``dtype``/``param_dtype``: parameters stay f32, and
 each layer casts its input, weight and bias to the compute dtype at use;
@@ -14,7 +19,7 @@ reshape keeps the JAX package's NHWC element order.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -51,32 +56,72 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-class ConvTrunk(nn.Module):
-    """Stride-2 conv pyramid over one bar: [B,T,P] → [B,F] (NHWC flatten).
+def space_to_depth(x: torch.Tensor, pt: int, pp: int) -> torch.Tensor:
+    """[B,T,P] → [B,T/pt,P/pp,pt·pp]: each (pt × pp) patch folded into
+    channels, channel i_t·pp + i_p, the JAX package's order."""
+    b, t, p = x.shape
+    if t % pt or p % pp:
+        raise ValueError(f"patch {(pt, pp)} does not tile a [{t}, {p}] "
+                         f"bar (ModelSpec.patch_size must divide "
+                         f"steps_per_bar x num_pitches)")
+    x = x.reshape(b, t // pt, pt, p // pp, pp).permute(0, 1, 3, 2, 4)
+    return x.reshape(b, t // pt, p // pp, pt * pp)
 
-    ``first_conv_kernel`` (ModelSpec.use_pallas_conv1) sends the first
-    conv, with its GELU, through ops/conv1.py ``first_conv_s2`` on 96x128
-    bars; the parameters are the same ``convs.0`` either way."""
+
+def depth_to_space(x: torch.Tensor, pt: int, pp: int) -> torch.Tensor:
+    """The inverse of ``space_to_depth``: [B,t0,p0,pt·pp] → [B,t0·pt,p0·pp]
+    (a permuted view where the reshape allows one)."""
+    b, t0, p0, _ = x.shape
+    x = x.reshape(b, t0, p0, pt, pp).permute(0, 1, 3, 2, 4)
+    return x.reshape(b, t0 * pt, p0 * pp)
+
+
+class ConvTrunk(nn.Module):
+    """Conv pyramid over one bar: [B,T,P] → [B,F] (NHWC flatten).
+
+    The parity stem (``patch`` None): stride-2 3x3 convs from one input
+    channel. ``first_conv_kernel`` (ModelSpec.use_pallas_conv1) sends the
+    first conv, with its GELU, through ops/conv1.py ``first_conv_s2`` on
+    96x128 bars; the parameters are the same ``convs.0`` either way.
+
+    The patch stem (``patch`` = (pt, pp), the JAX package's PatchTrunk):
+    time zero-padded to whole patches, ``space_to_depth`` to pt·pp
+    channels, then a stride-1 conv and stride-2 convs. It has no
+    first-conv kernel: the flag is ignored, as the JAX package ignores
+    it."""
 
     def __init__(self, channels: Sequence[int], dtype: str = "bfloat16",
-                 first_conv_kernel: bool = False):
+                 first_conv_kernel: bool = False,
+                 patch: Optional[Tuple[int, int]] = None):
         super().__init__()
-        chans = [1, *channels]
+        self.patch = None if patch is None else tuple(patch)
+        chans = [1 if patch is None else patch[0] * patch[1], *channels]
         self.convs = nn.ModuleList(
-            nn.Conv2d(chans[i], chans[i + 1], 3, stride=2, padding=1)
+            nn.Conv2d(chans[i], chans[i + 1], 3,
+                      stride=1 if patch is not None and i == 0 else 2,
+                      padding=1)
             for i in range(len(channels)))
         self.compute_dtype = dtype_of(dtype)
-        self.first_conv_kernel = first_conv_kernel
+        self.first_conv_kernel = first_conv_kernel and patch is None
 
     def flat_dim(self, steps: int, pitches: int) -> int:
         n = len(self.convs)
+        if self.patch is not None:
+            steps, pitches, n = (-(-steps // self.patch[0]),
+                                 pitches // self.patch[1], n - 1)
         return (_halved(steps, n) * _halved(pitches, n)
                 * self.convs[-1].out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         convs = list(self.convs)
-        if self.first_conv_kernel and tuple(x.shape[1:]) == (96, 128):
+        if self.patch is not None:
+            pt, pp = self.patch
+            h = x.to(dt)
+            if h.shape[1] % pt:     # bar-adapting meters: silent steps
+                h = F.pad(h, (0, 0, 0, pt - h.shape[1] % pt))
+            h = space_to_depth(h, pt, pp).permute(0, 3, 1, 2)
+        elif self.first_conv_kernel and tuple(x.shape[1:]) == (96, 128):
             c0 = convs.pop(0)
             w = c0.weight[:, 0].permute(1, 2, 0).contiguous()    # [3,3,C]
             h = first_conv_s2(x, w, c0.bias, gelu=True, out_dtype=dt)
@@ -85,7 +130,7 @@ class ConvTrunk(nn.Module):
             h = x.to(dt)[:, None]
         for conv in convs:
             h = _gelu(F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt),
-                               stride=2, padding=1))
+                               stride=conv.stride, padding=1))
         return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
 
 
@@ -94,8 +139,9 @@ class BarFeat(ConvTrunk):
 
     def __init__(self, feat_dim: int, channels: Sequence[int],
                  dtype: str = "bfloat16", first_conv_kernel: bool = False,
-                 steps: int = 96, pitches: int = 128):
-        super().__init__(channels, dtype, first_conv_kernel)
+                 steps: int = 96, pitches: int = 128,
+                 patch: Optional[Tuple[int, int]] = None):
+        super().__init__(channels, dtype, first_conv_kernel, patch)
         self.fc = Dense(self.flat_dim(steps, pitches), feat_dim, dtype)
 
     def forward(self, bar: torch.Tensor) -> torch.Tensor:
@@ -149,18 +195,198 @@ class BarDecoderHead(nn.Module):
         self.logits_dtype = dtype_of(logits_dtype)
 
     def forward(self, v: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
         h = _gelu(self.fc(v))
         h = h.reshape(h.shape[0], self.t0, self.p0, -1).permute(0, 3, 1, 2)
-        for i, d in enumerate(self.deconvs):
-            t, p = h.shape[2], h.shape[3]
-            h = F.conv_transpose2d(h, d.weight.to(dt), d.bias.to(dt),
-                                   stride=2)[:, :, :2 * t, :2 * p]
-            if i + 1 < len(self.deconvs):
-                h = _gelu(h)
+        h = _upsample(h, self.deconvs, self.compute_dtype, gelu_last=False)
         # contiguous: the crop is a view when no cast copies it (f32)
         return h[:, 0, :self.steps, :self.pitches].to(
             self.logits_dtype).contiguous()
+
+
+def _upsample(h: torch.Tensor, deconvs, dt: torch.dtype,
+              gelu_last: bool) -> torch.Tensor:
+    """The stride-2 transposed convs of a decoder head, NCHW, each cropped
+    to twice its input, GELU after each but (unless ``gelu_last``) the
+    last."""
+    for i, d in enumerate(deconvs):
+        t, p = h.shape[2], h.shape[3]
+        h = F.conv_transpose2d(h, d.weight.to(dt), d.bias.to(dt),
+                               stride=2)[:, :, :2 * t, :2 * p]
+        if gelu_last or i + 1 < len(deconvs):
+            h = _gelu(h)
+    return h
+
+
+class PatchHead(nn.Module):
+    """The patch stem's decoder head (the JAX package's PatchHead): dense →
+    GELU → [t0,p0,C0] (NHWC order) → stride-2 transposed convs, each with
+    GELU → a stride-1 conv to pt·pp channels → ``depth_to_space`` → the
+    [T, P] crop of the ceil-padded grid, contiguous. Names: ``fc``,
+    ``deconvs.i``, ``out``."""
+
+    def __init__(self, channels: Sequence[int], in_dim: int,
+                 patch: Tuple[int, int] = (8, 16), steps: int = 96,
+                 pitches: int = 128, dtype: str = "bfloat16",
+                 logits_dtype: str = "float32"):
+        super().__init__()
+        pt, pp = self.patch = tuple(patch)
+        n_up = len(channels) - 1
+        self.t0 = -(-steps // (pt * 2 ** n_up))
+        self.p0 = -(-pitches // (pp * 2 ** n_up))
+        self.steps, self.pitches = steps, pitches
+        self.fc = Dense(in_dim, self.t0 * self.p0 * channels[0], dtype)
+        self.deconvs = nn.ModuleList(
+            nn.ConvTranspose2d(channels[i], channels[i + 1], 3, stride=2,
+                               padding=0)
+            for i in range(n_up))
+        self.out = nn.Conv2d(channels[-1], pt * pp, 3, padding=1)
+        self.compute_dtype = dtype_of(dtype)
+        self.logits_dtype = dtype_of(logits_dtype)
+
+    def forward(self, v: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        h = _gelu(self.fc(v))
+        h = h.reshape(h.shape[0], self.t0, self.p0, -1).permute(0, 3, 1, 2)
+        h = _upsample(h, self.deconvs, dt, gelu_last=True)
+        h = F.conv2d(h, self.out.weight.to(dt), self.out.bias.to(dt),
+                     padding=1)
+        h = depth_to_space(h.permute(0, 2, 3, 1), *self.patch)
+        # contiguous: depth_to_space permutes, and the cast keeps strides
+        return h[:, :self.steps, :self.pitches].to(
+            self.logits_dtype).contiguous()
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: statistics in f32 whatever
+    the input dtype, the variance as E[x²] − E[x]² (flax's
+    ``use_fast_variance``) clipped at 0, epsilon 1e-6, scale and bias in
+    f32, the result cast to the compute dtype. Names: ``weight`` (flax's
+    ``scale``) and ``bias``."""
+
+    def __init__(self, features: int, dtype: str = "bfloat16"):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.compute_dtype = dtype_of(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (xf - mean) * (torch.rsqrt(var + 1e-6) * self.weight) + self.bias
+        return y.to(self.compute_dtype)
+
+
+KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class AttnStack(nn.Module):
+    """Pre-LN transformer over the bar axis, the attention temporal core
+    (the JAX package's AttnStack). Two entry points share one set of
+    weights and one ``_attend``:
+
+    - ``forward(u)``: [B,N,D] → [B,N,H], every bar at once; causal for the
+      decoder, bidirectional for the encoder;
+    - ``step(cache, u, pos, start)``: one bar. K and V are written into
+      ``cache`` (``attn_cache``) at ``pos``, and the query attends to
+      positions [start, pos] of its row: a reset bar starts a new segment
+      (start = pos), with positions counted from the segment's start.
+
+    Scores and softmax are f32 whatever the compute dtype, masked with
+    -1e30, and the weights are cast to the compute dtype before they
+    meet V, as in the JAX package. Names mirror flax's: ``inp``,
+    ``pos_emb``, ``ln1.l``, ``ln2.l``, ``qkv.l``, ``wo.l``, ``mlp_up.l``,
+    ``mlp_dn.l``, ``ln_f``."""
+
+    def __init__(self, in_dim: int, hidden: int, num_layers: int = 2,
+                 heads: int = 4, max_len: int = 128, causal: bool = True,
+                 dtype: str = "bfloat16"):
+        super().__init__()
+        if hidden % heads:
+            raise ValueError(f"attn hidden {hidden} not divisible by "
+                             f"{heads} heads")
+        self.hidden, self.heads, self.max_len = hidden, heads, max_len
+        self.causal = causal
+        self.compute_dtype = dtype_of(dtype)
+
+        def layer(make):
+            return nn.ModuleList(make() for _ in range(num_layers))
+
+        self.inp = Dense(in_dim, hidden, dtype)
+        self.pos_emb = nn.Parameter(torch.zeros(max_len, hidden))
+        self.ln1 = layer(lambda: LayerNorm(hidden, dtype))
+        self.ln2 = layer(lambda: LayerNorm(hidden, dtype))
+        self.qkv = layer(lambda: Dense(hidden, 3 * hidden, dtype))
+        self.wo = layer(lambda: Dense(hidden, hidden, dtype))
+        self.mlp_up = layer(lambda: Dense(hidden, 4 * hidden, dtype))
+        self.mlp_dn = layer(lambda: Dense(4 * hidden, hidden, dtype))
+        self.ln_f = LayerNorm(hidden, dtype)
+
+    def reset_parameters(self) -> None:
+        """flax's ``normal(0.02)`` position table (untruncated)."""
+        nn.init.normal_(self.pos_emb, std=0.02)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(*x.shape[:-1], self.heads, self.hidden // self.heads)
+
+    def _attend(self, q, k, v, mask) -> torch.Tensor:
+        """q [B,Q,h,d], k and v [B,K,h,d], mask broadcast to [B,h,Q,K] →
+        [B,Q,h,d]. f32 operands for QKᵀ: a bf16 matmul would round the
+        scores to bf16."""
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        scores = scores * (1.0 / (self.hidden // self.heads) ** 0.5)
+        w = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", w.to(self.compute_dtype), v)
+
+    def _block(self, l: int, h: torch.Tensor, q, k, v, mask) -> torch.Tensor:
+        """The rest of layer ``l`` once its attention inputs are known:
+        the output projection and its residual, then the MLP's."""
+        o = self._attend(self._heads(q), self._heads(k), self._heads(v), mask)
+        h = h + self.wo[l](o.reshape(*h.shape[:-1], self.hidden))
+        return h + self.mlp_dn[l](_gelu(self.mlp_up[l](self.ln2[l](h))))
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        n = u.shape[1]
+        if n > self.max_len:
+            raise ValueError(
+                f"sequence of {n} bars exceeds attn_max_bars="
+                f"{self.max_len}; raise ModelSpec.attn_max_bars (the "
+                "learned position table) for longer windows/sweeps")
+        dt = self.compute_dtype
+        h = self.inp(u) + self.pos_emb[:n].to(dt)
+        mask = torch.ones(n, n, dtype=torch.bool, device=u.device)
+        if self.causal:
+            mask = mask.tril()
+        for l in range(len(self.qkv)):
+            q, k, v = self.qkv[l](self.ln1[l](h)).chunk(3, dim=-1)
+            h = self._block(l, h, q, k, v, mask)
+        return self.ln_f(h)
+
+    def step(self, cache: KVCache, u: torch.Tensor, pos: int,
+             start: torch.Tensor) -> torch.Tensor:
+        """One bar: u [B,D], ``pos`` the bar's index in the sweep, start
+        [B] (int64) the first position of each row's segment → [B,H]. The
+        cache's tensors are written in place."""
+        dt = self.compute_dtype
+        h = self.inp(u) + self.pos_emb[pos - start].to(dt)
+        idx = torch.arange(cache[0][0].shape[1], device=u.device)
+        mask = ((idx[None] >= start[:, None])
+                & (idx[None] <= pos))[:, None, None, :]
+        for l, (kc, vc) in enumerate(cache):
+            q, k, v = self.qkv[l](self.ln1[l](h)).chunk(3, dim=-1)
+            kc[:, pos] = k
+            vc[:, pos] = v
+            h = self._block(l, h[:, None], q[:, None], kc, vc, mask)[:, 0]
+        return self.ln_f(h)
+
+
+def attn_cache(batch: int, length: int, num_layers: int, hidden: int,
+               dtype: torch.dtype, device=None) -> KVCache:
+    """A zeroed (K, V) pair a layer, [B, length, H] each, for a
+    ``length``-bar sweep of ``AttnStack.step``."""
+    return [(torch.zeros(batch, length, hidden, dtype=dtype, device=device),
+             torch.zeros(batch, length, hidden, dtype=dtype, device=device))
+            for _ in range(num_layers)]
 
 
 class GRUCell(nn.Module):

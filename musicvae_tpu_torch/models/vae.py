@@ -1,19 +1,19 @@
-"""The piano-roll VAE family with the parity conv stem: the conv bar-VAE
-(kind ``conv_bar``, C1), the GRU sequence-VAE (``gru_seq``, C2), the
-hierarchical bar→phrase VAE (``hier``, C3) and the chord/key-conditional
-VAE (``cond``, C4).
+"""The piano-roll VAE family: the conv bar-VAE (kind ``conv_bar``, C1),
+the GRU sequence-VAE (``gru_seq``, C2), the hierarchical bar→phrase VAE
+(``hier``, C3) and the chord/key-conditional VAE (``cond``, C4), each with
+the parity conv stem or the space-to-depth patch stem (``stem``), and the
+sequence kinds with the GRU or the attention core over the bars
+(``temporal``).
 
 Counterpart of the JAX package's models/vae.py. As there, the decode-path
 weights serve two entry points: ``teacher`` (training decode: the prev-bar
-features and the head run batched over all B·N bars, only the GRU steps
-bar by bar) and ``step`` (one closed-loop generation bar: prev-bar
-features → GRU → head → binarize → feed back), which ``generate`` loops
+features and the head run batched over all B·N bars; the GRU steps bar by
+bar, the attention core takes every bar at once) and ``step`` /
+``attn_step`` (one closed-loop generation bar: prev-bar features →
+temporal core → head → binarize → feed back), which ``generate`` loops
 over the bars. In the JAX package these live on a separate ``BarDecoder``
 module; here ``PianoRollVAE`` inherits them from ``BarDecoder`` so that
 every module keeps the oracle's top-level state-dict name.
-
-The patch stem and the attention core are later slices: they raise
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,20 +54,22 @@ Eps = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 def check_supported(spec: ModelSpec) -> None:
-    """The port builds the four parity kinds with the conv stem and the GRU
-    core; the patch stem and the attention core are later items."""
-    if spec.stem != "conv":
-        raise NotImplementedError(
-            f"the PyTorch port runs stem='conv' so far; got "
-            f"stem={spec.stem!r} (the patch stem is ROADMAP.md item A10)")
-    if spec.temporal != "gru":
-        raise NotImplementedError(
-            f"the PyTorch port runs temporal='gru' so far; got "
-            f"temporal={spec.temporal!r} (the attention core is ROADMAP.md "
-            f"item A11)")
+    """The JAX package's own refusals (its ``PianoRollVAE.setup``), in its
+    words, and the unknown kind."""
     if spec.kind not in KINDS:
         raise ValueError(f"unknown ModelSpec.kind {spec.kind!r}; expected "
                          f"one of {KINDS}")
+    if spec.temporal not in ("gru", "attn"):
+        raise ValueError(f"unknown ModelSpec.temporal "
+                         f"{spec.temporal!r}; expected 'gru' or 'attn'")
+    if spec.temporal == "attn" and spec.kind == "conv_bar":
+        raise ValueError(
+            "temporal='attn' needs a bar-sequence model; "
+            "kind='conv_bar' has no temporal core")
+    if spec.temporal == "attn" and spec.num_bars > spec.attn_max_bars:
+        raise ValueError(
+            f"num_bars={spec.num_bars} exceeds attn_max_bars="
+            f"{spec.attn_max_bars} (the learned position table)")
 
 
 def eps_shapes(spec: ModelSpec, batch: int) -> List[Tuple[int, ...]]:
@@ -91,41 +93,59 @@ def draw_eps(spec: ModelSpec, batch: int,
 class BarDecoder(nn.Module):
     """Decode-path weights and the two decode modes.
 
-    The per-kind pieces, as in the JAX package: conv_bar has no recurrence
-    (the head reads z and the previous bar's features); gru_seq and cond
-    run ``dec_gru`` over the bars (cond feeds it the chord/key vector and
-    hands the vector on to the head); hier adds the conductor, a second
+    The per-kind pieces, as in the JAX package: conv_bar has no temporal
+    core (the head reads z and the previous bar's features); gru_seq and
+    cond run ``dec_gru`` over the bars (cond feeds it the chord/key vector
+    and hands the vector on to the head); hier adds the conductor, a second
     GRU over the phrase latent whose output joins the head input. Both
-    recurrences restart at a reset bar."""
+    recurrences restart at a reset bar. Under ``temporal="attn"`` the
+    causal ``seq_attn`` takes the GRU's place, hier has no conductor (the
+    phrase latent joins the attention input instead), and a reset bar
+    starts a new attention segment."""
 
     def __init__(self, spec: ModelSpec, midi: MidiSpec):
         super().__init__()
         check_supported(spec)
         self.spec, self.midi = spec, midi
         self.compute_dtype = layers.dtype_of(spec.dtype)
+        self.attn = spec.temporal == "attn"
+        patch = spec.patch_size if spec.stem == "patch" else None
         t, p = midi.steps_per_bar, midi.num_pitches
         cond_dim = 2 * spec.cond_embed_dim if spec.kind == "cond" else 0
         feat_dim = spec.bar_feat_dim if spec.use_prev_bar else 0
         if spec.use_prev_bar:
             self.prev_feat = layers.BarFeat(
                 spec.bar_feat_dim, spec.enc_channels, spec.dtype,
-                spec.use_pallas_conv1, steps=t, pitches=p)
+                spec.use_pallas_conv1, steps=t, pitches=p, patch=patch)
         if spec.kind == "conv_bar":
             head_in = spec.z_dim + feat_dim
+        elif self.attn:
+            zp_dim = spec.z_phrase_dim if spec.kind == "hier" else 0
+            self.seq_attn = layers.AttnStack(
+                spec.z_dim + feat_dim + cond_dim + zp_dim, spec.gru_hidden,
+                spec.attn_layers, spec.attn_heads, spec.attn_max_bars,
+                causal=True, dtype=spec.dtype)
+            head_in = spec.gru_hidden + cond_dim
         else:
             self.h_init = layers.Dense(spec.z_dim, spec.gru_hidden,
                                        spec.dtype)
             self.dec_gru = layers.GRUCell(spec.z_dim + feat_dim + cond_dim,
                                           spec.gru_hidden, spec.dtype)
             head_in = spec.gru_hidden + cond_dim
-        if spec.kind == "hier":
+        if spec.kind == "hier" and not self.attn:
             self.cond_init = layers.Dense(spec.z_phrase_dim, spec.gru_hidden,
                                           spec.dtype)
             self.conductor = layers.GRUCell(spec.z_phrase_dim,
                                             spec.gru_hidden, spec.dtype)
             head_in = 2 * spec.gru_hidden
-        self.head = layers.BarDecoderHead(
-            spec.dec_channels, head_in, t, p, spec.dtype, spec.logits_dtype)
+        if patch is not None:
+            self.head = layers.PatchHead(
+                spec.dec_channels, head_in, patch, t, p, spec.dtype,
+                spec.logits_dtype)
+        else:
+            self.head = layers.BarDecoderHead(
+                spec.dec_channels, head_in, t, p, spec.dtype,
+                spec.logits_dtype)
         self.register_buffer("pitch_mask", pitch_mask(midi),
                              persistent=False)
 
@@ -158,6 +178,18 @@ class BarDecoder(nn.Module):
             hc = self.conductor(z_phrase.to(self.compute_dtype), hc)
         return h, hc
 
+    def _seq_in(self, z, feat, cond, z_phrase) -> torch.Tensor:
+        """The temporal core's input, the same in both decode modes: z ⊕
+        feat ⊕ the cond vector (cond) ⊕ the phrase latent (hier with
+        attention, where it stands in for the conductor)."""
+        dt = self.compute_dtype
+        parts = [z.to(dt)] + ([] if feat is None else [feat])
+        if self.spec.kind == "cond":
+            parts.append(cond.to(dt))
+        if self.attn and self.spec.kind == "hier":
+            parts.append(z_phrase.to(dt))
+        return torch.cat(parts, dim=-1)
+
     def teacher(self, z_bars: torch.Tensor, x: torch.Tensor,
                 cond_vec: Optional[torch.Tensor] = None,
                 z_phrase_bars: Optional[torch.Tensor] = None
@@ -165,9 +197,10 @@ class BarDecoder(nn.Module):
         """Teacher-forced decode: z_bars [B,N,z], x [B,N,T,P], cond_vec
         [B,N,2E] (cond), z_phrase_bars [B,N,z_phrase] (hier) → logits
         [B,N,T,P]. Bar k is conditioned on x[:, k-1] (zeros for k = 0);
-        the recurrences start at bar 0."""
+        the recurrences start at bar 0, and the attention core sees bars
+        0..k."""
         b, n, t, p = x.shape
-        spec, dt = self.spec, self.compute_dtype
+        spec = self.spec
         feats = None
         if spec.use_prev_bar:
             prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
@@ -175,21 +208,21 @@ class BarDecoder(nn.Module):
                 b, n, -1)
         out = c = None
         if spec.kind != "conv_bar":
-            parts = [z_bars.to(dt)] + ([] if feats is None else [feats])
-            if spec.kind == "cond":
-                parts.append(cond_vec.to(dt))
-            gru_in = torch.cat(parts, dim=-1)
-            zp = [None] * n if z_phrase_bars is None else \
-                z_phrase_bars.unbind(1)
-            h, hc = self._start(z_bars[:, 0], zp[0])    # reset at bar 0
-            outs, cs = [], []
-            for k in range(n):
-                h, hc = self._recur(h, hc, gru_in[:, k], zp[k])
-                outs.append(h)
-                cs.append(hc)
-            out = torch.stack(outs, dim=1).reshape(b * n, -1)
-            if spec.kind == "hier":
-                c = torch.stack(cs, dim=1).reshape(b * n, -1)
+            seq_in = self._seq_in(z_bars, feats, cond_vec, z_phrase_bars)
+            if self.attn:
+                out = self.seq_attn(seq_in).reshape(b * n, -1)
+            else:
+                zp = [None] * n if z_phrase_bars is None else \
+                    z_phrase_bars.unbind(1)
+                h, hc = self._start(z_bars[:, 0], zp[0])  # reset at bar 0
+                outs, cs = [], []
+                for k in range(n):
+                    h, hc = self._recur(h, hc, seq_in[:, k], zp[k])
+                    outs.append(h)
+                    cs.append(hc)
+                out = torch.stack(outs, dim=1).reshape(b * n, -1)
+                if spec.kind == "hier":
+                    c = torch.stack(cs, dim=1).reshape(b * n, -1)
         head_in = self._head_in(
             z_bars.reshape(b * n, -1),
             None if feats is None else feats.reshape(b * n, -1),
@@ -197,33 +230,37 @@ class BarDecoder(nn.Module):
             out, c)
         return self.head(head_in).reshape(b, n, t, p)
 
+    def _emit(self, logits: torch.Tensor, u: Optional[torch.Tensor],
+              sample_temperature: float) -> torch.Tensor:
+        """A generated bar from its logits: the threshold binarization, or
+        with ``u`` (U[0,1) draws [B,T,P]) the Bernoulli sample at
+        ``sample_temperature`` (GenSpec.sample_mode "bernoulli")."""
+        if u is None:
+            return binarize_logits(logits, self.midi.binarize_threshold,
+                                   self.pitch_mask, dtype=torch.uint8)
+        return sample_bernoulli_logits(u, logits, sample_temperature,
+                                       self.pitch_mask, dtype=torch.uint8)
+
     def step(self, h, prev_bar: torch.Tensor, z: torch.Tensor,
              reset: torch.Tensor, u: Optional[torch.Tensor] = None,
              sample_temperature: float = 1.0,
              cond: Optional[torch.Tensor] = None,
              z_phrase: Optional[torch.Tensor] = None):
-        """One closed-loop bar. h: the recurrent state, [B,H] (gru_seq,
-        cond), the pair ([B,H], [B,H]) of the GRU and the conductor (hier)
-        or None (conv_bar); prev_bar [B,T,P] uint8, z [B,z], reset [B] (1
-        where the recurrences re-initialize), cond [B,2E] (cond), z_phrase
-        [B,z_phrase] (hier). Returns (h, logits [B,T,P], bar [B,T,P]
-        uint8), h in the structure it came in.
-
-        The bar is the threshold binarization of the logits, or, when
-        ``u`` (U[0,1) draws [B,T,P]) is given, their Bernoulli sample at
-        ``sample_temperature`` (GenSpec.sample_mode "bernoulli").
+        """One closed-loop bar of the GRU core. h: the recurrent state,
+        [B,H] (gru_seq, cond), the pair ([B,H], [B,H]) of the GRU and the
+        conductor (hier) or None (conv_bar); prev_bar [B,T,P] uint8, z
+        [B,z], reset [B] (1 where the recurrences re-initialize), cond
+        [B,2E] (cond), z_phrase [B,z_phrase] (hier). Returns (h, logits
+        [B,T,P], bar [B,T,P] uint8), h in the structure it came in; the
+        bar as ``_emit`` makes it from ``u``.
 
         At a reset bar the recurrences restart while the previous bar
         keeps conditioning across the phrase seam, as in the JAX
         package's ``BarDecoder.step``."""
         spec, dt = self.spec, self.compute_dtype
         feat = out = c = None
-        parts = [z.to(dt)]
         if spec.use_prev_bar:
             feat = self.prev_feat(prev_bar)
-            parts.append(feat)
-        if spec.kind == "cond":
-            parts.append(cond.to(dt))
         if spec.kind != "conv_bar":
             h, hc = h if spec.kind == "hier" else (h, None)
             h0, hc0 = self._start(z, z_phrase)
@@ -231,16 +268,33 @@ class BarDecoder(nn.Module):
             h = torch.where(reset, h0, h.to(dt))
             if hc is not None:
                 hc = torch.where(reset, hc0, hc.to(dt))
-            out, c = self._recur(h, hc, torch.cat(parts, dim=-1), z_phrase)
+            out, c = self._recur(h, hc, self._seq_in(z, feat, cond, None),
+                                 z_phrase)
             h = (out, c) if spec.kind == "hier" else out
         logits = self.head(self._head_in(z, feat, cond, out, c))
-        if u is None:
-            bar = binarize_logits(logits, self.midi.binarize_threshold,
-                                  self.pitch_mask, dtype=torch.uint8)
-        else:
-            bar = sample_bernoulli_logits(u, logits, sample_temperature,
-                                          self.pitch_mask, dtype=torch.uint8)
-        return h, logits, bar
+        return h, logits, self._emit(logits, u, sample_temperature)
+
+    def attn_step(self, state, prev_bar: torch.Tensor, z: torch.Tensor,
+                  reset: torch.Tensor, u: Optional[torch.Tensor] = None,
+                  sample_temperature: float = 1.0,
+                  cond: Optional[torch.Tensor] = None,
+                  z_phrase: Optional[torch.Tensor] = None):
+        """One closed-loop bar of the attention core, the arguments of
+        ``step`` but the state: (KV cache (``layers.attn_cache``), pos (the
+        bar's index in the sweep), start [B] int64 (each row's segment
+        start)). A reset bar starts a new segment (start ← pos) while the
+        previous bar keeps conditioning across the seam. Returns (state,
+        logits, bar)."""
+        cache, pos, start = state
+        feat = None
+        if self.spec.use_prev_bar:
+            feat = self.prev_feat(prev_bar)
+        start = torch.where(reset > 0, pos, start)
+        out = self.seq_attn.step(cache, self._seq_in(z, feat, cond, z_phrase),
+                                 pos, start)
+        logits = self.head(self._head_in(z, feat, cond, out, None))
+        return ((cache, pos + 1, start), logits,
+                self._emit(logits, u, sample_temperature))
 
 
 class PianoRollVAE(BarDecoder):
@@ -248,8 +302,9 @@ class PianoRollVAE(BarDecoder):
 
     The encoder per kind: conv_bar runs ``enc_trunk`` on the window's
     first bar into ``z_head``; the others run ``enc_feat`` on every bar
-    and ``enc_gru`` over the bars (cond appends the chord/key vector to
-    each bar's features), then ``z_head`` on the last state, or for hier
+    and ``enc_gru`` over the bars (or, under ``temporal="attn"``, the
+    bidirectional ``enc_attn``; cond appends the chord/key vector to each
+    bar's features), then ``z_head`` on the last bar's state, or for hier
     ``phrase_head`` (the phrase latent) and ``bar_head`` (each bar's
     latent from its features and the phrase latent).
 
@@ -262,19 +317,26 @@ class PianoRollVAE(BarDecoder):
                  remat_encoder: bool = False):
         super().__init__(spec, midi)
         self.remat_encoder = remat_encoder
+        patch = spec.patch_size if spec.stem == "patch" else None
         t, p = midi.steps_per_bar, midi.num_pitches
         if spec.kind == "conv_bar":
             self.enc_trunk = layers.ConvTrunk(spec.enc_channels, spec.dtype,
-                                              spec.use_pallas_conv1)
+                                              spec.use_pallas_conv1, patch)
             self.z_head = layers.GaussianHead(
                 self.enc_trunk.flat_dim(t, p), spec.z_dim, spec.dtype)
             return
         cond_dim = 2 * spec.cond_embed_dim if spec.kind == "cond" else 0
         self.enc_feat = layers.BarFeat(
             spec.bar_feat_dim, spec.enc_channels, spec.dtype,
-            spec.use_pallas_conv1, steps=t, pitches=p)
-        self.enc_gru = layers.GRUCell(spec.bar_feat_dim + cond_dim,
-                                      spec.gru_hidden, spec.dtype)
+            spec.use_pallas_conv1, steps=t, pitches=p, patch=patch)
+        if self.attn:
+            self.enc_attn = layers.AttnStack(
+                spec.bar_feat_dim + cond_dim, spec.gru_hidden,
+                spec.attn_layers, spec.attn_heads, spec.attn_max_bars,
+                causal=False, dtype=spec.dtype)
+        else:
+            self.enc_gru = layers.GRUCell(spec.bar_feat_dim + cond_dim,
+                                          spec.gru_hidden, spec.dtype)
         if spec.kind == "hier":
             self.phrase_head = layers.GaussianHead(
                 spec.gru_hidden, spec.z_phrase_dim, spec.dtype)
@@ -322,10 +384,13 @@ class PianoRollVAE(BarDecoder):
             # the JAX concatenation promotes the bf16 features to f32;
             # enc_gru rounds both back to its compute dtype
             f = torch.cat([f.float(), cond_vec], dim=-1)
-        h = torch.zeros(x.shape[0], self.spec.gru_hidden,
-                        dtype=self.compute_dtype, device=x.device)
-        for k in range(x.shape[1]):
-            h = self.enc_gru(f[:, k], h)
+        if self.attn:   # bidirectional: the last bar sees the window
+            h = self.enc_attn(f)[:, -1]
+        else:
+            h = torch.zeros(x.shape[0], self.spec.gru_hidden,
+                            dtype=self.compute_dtype, device=x.device)
+            for k in range(x.shape[1]):
+                h = self.enc_gru(f[:, k], h)
         if self.spec.kind == "hier":
             return (*self.phrase_head(h), f)
         return self.z_head(h)
@@ -380,7 +445,10 @@ class PianoRollVAE(BarDecoder):
         ``uniforms`` itself, a generator on the model's device, made bar
         by bar. A sequence of W generators splits the batch into W equal
         slots (coalesced requests): each bar, slot i's rows are drawn from
-        generator i, as a lone sweep of B/W rows would draw them."""
+        generator i, as a lone sweep of B/W rows would draw them.
+
+        The attention core steps through an N-bar KV cache made once for
+        the sweep; N may not exceed ``attn_max_bars``."""
         spec = self.spec
         b, n = z_bars.shape[:2]
         t, p = self.midi.steps_per_bar, self.midi.num_pitches
@@ -402,8 +470,18 @@ class PianoRollVAE(BarDecoder):
                   z_phrase[:, None, :].expand(-1, n, -1))
         prev = (seed_bar.to(torch.uint8) if seed_bar is not None else
                 torch.zeros(b, t, p, dtype=torch.uint8, device=dev))
-        h = None
-        if spec.kind != "conv_bar":
+        step, h = self.step, None
+        if self.attn:
+            if n > spec.attn_max_bars:
+                raise ValueError(
+                    f"{n}-bar sweep exceeds attn_max_bars="
+                    f"{spec.attn_max_bars} (the learned position table); "
+                    "raise ModelSpec.attn_max_bars or shorten the sweep")
+            step = self.attn_step
+            h = (layers.attn_cache(b, n, spec.attn_layers, spec.gru_hidden,
+                                   self.compute_dtype, dev),
+                 0, torch.zeros(b, dtype=torch.long, device=dev))
+        elif spec.kind != "conv_bar":
             h = torch.zeros(b, spec.gru_hidden, dtype=self.compute_dtype,
                             device=dev)
             if spec.kind == "hier":
@@ -424,7 +502,7 @@ class PianoRollVAE(BarDecoder):
                 u = draws[0] if len(draws) == 1 else torch.cat(draws)
             else:
                 u = None if uniforms is None else uniforms[:, k]
-            h, logits, prev = self.step(
+            h, logits, prev = step(
                 h, prev, z_bars[:, k], reset[:, k], u, sample_temperature,
                 None if cond_vec is None else cond_vec[:, k],
                 None if zp is None else zp[:, k])
@@ -433,12 +511,22 @@ class PianoRollVAE(BarDecoder):
         return torch.stack(all_logits, dim=1), torch.stack(bars, dim=1)
 
 
+def param_count(model: nn.Module) -> int:
+    """The number of parameters of the JAX package's model: the port's
+    less each GRU cell's r/z hidden biases, constants that flax's GRU
+    does not have."""
+    return sum(p.numel() for p in model.parameters()) - sum(
+        2 * m.weight_hh.shape[1] for m in model.modules()
+        if isinstance(m, layers.GRUCell))
+
+
 @torch.no_grad()
 def init_like_flax(model: nn.Module) -> None:
     """Redraw the parameters from the JAX package's initializers: flax's
     lecun-normal (truncated at two standard deviations) for every kernel,
-    orthogonal GRU recurrences, zero biases, and flax ``nn.Embed``'s
-    normal embeddings (``layers.Embed``). The same distributions as
+    orthogonal GRU recurrences, zero biases, flax ``nn.Embed``'s normal
+    embeddings (``layers.Embed``), the attention core's N(0, 0.02²)
+    position table, and LayerNorm scales of one. The same distributions as
     ``musicvae_tpu.models.init_params``, not the same bits."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
@@ -455,8 +543,11 @@ def init_like_flax(model: nn.Module) -> None:
                 nn.init.orthogonal_(block)
             nn.init.zeros_(mod.bias_ih)
             nn.init.zeros_(mod.bias_hh)
-        elif isinstance(mod, layers.Embed):
+        elif isinstance(mod, (layers.Embed, layers.AttnStack)):
             mod.reset_parameters()
+        elif isinstance(mod, layers.LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
 
 
 def build_model(cfg: Config, device="cuda",

@@ -21,8 +21,9 @@ from musicvae_tpu_torch.models import layers
 from musicvae_tpu_torch.models.vae import (PianoRollVAE, build_model,
                                            check_supported, draw_eps,
                                            eps_shapes)
-from torch_port_helpers import (KINDS, jax_params, jitted, kind_inputs,
-                                kind_pair, one_torch_thread,  # noqa: F401
+from torch_port_helpers import (KINDS, jax_params, jax_zero_params,
+                                jitted, kind_inputs, kind_pair,
+                                one_torch_thread,  # noqa: F401
                                 port_model, to_jax, to_torch)
 
 VARIANTS = {"f32": {}, "conv1_kernel": dict(use_pallas_conv1=True),
@@ -153,9 +154,20 @@ def test_embed_draws_flax_initializer():
 
 @pytest.mark.parametrize("name", ["c3_mxu", "c3_trf", "c2_mxu_wide"])
 def test_patch_and_attention_still_refused(name):
-    _, tc = kind_pair(name)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item A1[01]"):
-        check_supported(tc.model)
+    """(Named when the port refused these configs.) ``check_supported``
+    takes them now, at their registered widths and at the parity kinds'
+    tiny ones, and the port's model loads flax params of the JAX
+    package's shapes strictly."""
+    from musicvae_tpu_torch.checkpoints.convert import (
+        flax_params_to_state_dict)
+    from musicvae_tpu_torch.config import get_config
+
+    check_supported(get_config(name).model)
+    jc, tc = kind_pair(name)
+    check_supported(tc.model)
+    model = PianoRollVAE(tc.model, tc.midi)
+    model.load_state_dict(flax_params_to_state_dict(jax_zero_params(jc), tc),
+                          strict=True)
 
 
 def test_unknown_kind_refused():

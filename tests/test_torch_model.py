@@ -13,8 +13,8 @@ from musicvae_tpu.checkpoints.torch_convert import (
     flax_params_to_torch_state_dict)
 from musicvae_tpu_torch.checkpoints.convert import flax_params_to_state_dict
 from musicvae_tpu_torch.models.vae import PianoRollVAE
-from torch_port_helpers import (bars, jax_params, jitted, port_model,
-                                tiny_pair)
+from torch_port_helpers import (bars, jax_params, jax_zero_params, jitted,
+                                patch_pair, port_model, tiny_pair)
 
 
 def _case(pallas_conv1: bool, seed: int = 0, b: int = 2):
@@ -88,6 +88,12 @@ def test_converter_no_prev_bar():
 @pytest.mark.parametrize("name", ["c3_mxu", "c3_trf", "c2_mxu_wide",
                                   "c2_mxu", "c2_trf"])
 def test_unported_kinds_raise(name):
-    _, tc = tiny_pair(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PianoRollVAE(tc.model, tc.midi)
+    """(Named when the port refused these configs.) They build now, and
+    the converter carries flax params of the JAX package's shapes into
+    them with strict=True, key for key."""
+    jc, tc = patch_pair(name)
+    params = jax_zero_params(jc)
+    sd = flax_params_to_state_dict(params, tc)
+    model = PianoRollVAE(tc.model, tc.midi)
+    assert sorted(model.state_dict()) == sorted(sd)
+    model.load_state_dict(sd, strict=True)

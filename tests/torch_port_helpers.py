@@ -7,6 +7,7 @@ import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -14,6 +15,7 @@ import torch
 from musicvae_tpu import config as jcfg
 from musicvae_tpu.checkpoints.torch_convert import torch_state_dict_to_flax
 from musicvae_tpu.models import build_model as jax_build_model
+from musicvae_tpu.models import init_params as jax_init
 from musicvae_tpu_torch import config as tcfg
 from musicvae_tpu_torch.checkpoints.convert import flax_params_to_state_dict
 from musicvae_tpu_torch.models.vae import build_model as torch_build_model
@@ -163,3 +165,111 @@ def to_jax(tree):
 
 def to_torch(tree):
     return jax.tree.map(torch.tensor, tree)
+
+
+# the patch stem and the attention core at tiny widths (the sizes of
+# tests/test_attn.py's _tiny_trf_cfg); hier at 3 bars with an 8-wide
+# phrase latent, c2_mxu_wide's two-layer stacks kept two layers deep
+PATCH_TINY = dict(enc_channels=(8, 8, 16), dec_channels=(16, 8, 8),
+                  z_dim=8, gru_hidden=16, bar_feat_dim=16, attn_heads=4)
+PATCH_KW = {"c3_mxu": dict(num_bars=3, z_phrase_dim=8),
+            "c3_trf": dict(num_bars=3, z_phrase_dim=8),
+            "c2_mxu_wide": dict(enc_channels=(8, 16),
+                                dec_channels=(16, 16))}
+
+
+def patch_pair(name: str, **model_kw):
+    """``tiny_pair`` of a registered config with the patch-family tiny
+    sizes (``PATCH_TINY``; a conv-stem config keeps ``TINY``'s
+    channels)."""
+    kw = dict(PATCH_TINY)
+    if jcfg.get_config(name).model.stem != "patch" \
+            and model_kw.get("stem") != "patch":
+        kw = {k: v for k, v in kw.items() if "channels" not in k}
+    return tiny_pair(name, **{**kw, **PATCH_KW.get(name, {}), **model_kw})
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(jc, seed: int):
+    return jax.tree.map(np.asarray, jax_init(jc, jax.random.key(seed))[1])
+
+
+def jax_init_params(jc, seed: int = 0):
+    """(flax model, flax params as numpy) made by the JAX package's own
+    ``init_params`` (the oracle importer has no names for the patch stem
+    or the attention core), initialised once a (config, seed) in f32: the
+    params are f32 whatever the compute dtype. Every bias and LayerNorm
+    scale is then moved off its constant initial value by N(0, 0.1²)
+    noise from ``seed``, so that a comparison sees them."""
+    f32 = jc.replace(model=dataclasses.replace(jc.model, dtype="float32"))
+    rng = np.random.default_rng(seed)
+
+    def nudge(path, leaf):
+        if path[-1].key in ("bias", "scale"):
+            leaf = leaf + 0.1 * rng.standard_normal(leaf.shape).astype(
+                leaf.dtype)
+        return leaf
+
+    return jax_build_model(jc), jax.tree_util.tree_map_with_path(
+        nudge, _jax_init(f32, seed))
+
+
+def jax_zero_params(jc):
+    """Zero flax params of the shapes the JAX package's ``init_params``
+    gives (from ``jax.eval_shape``: traced, not run)."""
+    shapes = jax.eval_shape(lambda k: jax_init(jc, k)[1], jax.random.key(0))
+    return jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+
+
+def jax_port_model(tc, params):
+    """The port's model, built as it is (no weights drawn), with flax
+    ``params`` loaded strictly."""
+    from musicvae_tpu_torch.models.vae import PianoRollVAE
+
+    model = PianoRollVAE(tc.model, tc.midi)
+    model.load_state_dict(flax_params_to_state_dict(params, tc),
+                          strict=True)
+    return model.eval()
+
+
+def forward_pair(name, seed=0, b=2, **model_kw):
+    """(JAX config, the JAX forward's (logits, latents), the port's) on
+    the same JAX-initialised weights, input and noise."""
+    jc, tc = patch_pair(name, **model_kw)
+    jmodel, params = jax_init_params(jc, seed)
+    model = jax_port_model(tc, params)
+    x, eps, labels = kind_inputs(np.random.default_rng(seed), jc.model, b)
+    x = x[:, :, :jc.midi.steps_per_bar]
+    want = jitted(jmodel, "__call__")(params, jnp.asarray(x),
+                                      eps=to_jax(eps), **to_jax(labels))
+    with torch.no_grad():
+        got = model(torch.tensor(x), to_torch(eps), **to_torch(labels))
+    return jc, want, got
+
+
+def close(got, want, atol, bf16, what, bf16_ulps=4):
+    """``got`` (torch) within ``atol`` of ``want`` (JAX), or within
+    ``bf16_ulps`` bf16 ulps of ``want``'s largest magnitude when
+    ``bf16``."""
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    if bf16:
+        atol = bf16_ulps * 2.0 ** -8 * max(float(np.abs(want).max()), 1e-30)
+    assert got.shape == want.shape, what
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=what)
+
+
+def check_forward(name, dtype="float32", bf16_ulps=4, **model_kw):
+    """``forward_pair``'s outputs held together: f32 logits within 5e-4
+    and every latent level's (mu, logvar) within 3e-5; in bf16 each
+    within ``bf16_ulps`` bf16 ulps of its largest magnitude (the two
+    packages round the same bf16 operations in other orders)."""
+    jc, (logits_j, lat_j), (logits, lat) = forward_pair(
+        name, seed=1, dtype=dtype, **model_kw)
+    bf16 = dtype == "bfloat16"
+    assert logits.dtype == torch.float32 and logits.is_contiguous()
+    assert len(lat) == len(lat_j) == (2 if jc.model.kind == "hier" else 1)
+    close(logits, logits_j, 5e-4, bf16, "logits", bf16_ulps)
+    for i, ((mu, lv), (mu_j, lv_j)) in enumerate(zip(lat, lat_j)):
+        close(mu, mu_j, 3e-5, bf16, f"mu level {i}", bf16_ulps)
+        close(lv, lv_j, 3e-5, bf16, f"logvar level {i}", bf16_ulps)
