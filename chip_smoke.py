@@ -89,7 +89,29 @@ check does not hold:
    Then c2_mxu_wide, c3_mxu, c2_mxu_16bar and c2_trf_32bar 5 steps each
    (K4 a step), one 4 x 32-bar c2_trf_32bar sweep (a 32-position KV
    cache), and K4 at the 16/32-bar configs' n = 6,291,456 against its
-   plain version, timed beside its bound.
+   plain version, timed beside its bound. c2_trf and c3_trf must serve
+   the same bits serial and --coalesce 4; c2_mxu is also served from its
+   untrained init, which gives notes;
+13. parallel: data-parallel training at full width (c2_gru_4bar, bf16,
+   64 x 4, the seeded bar cache): (a) 5 streamed steps (packed, uploaded
+   on a side stream) equal 5 single steps bit for bit, ``train --stream``
+   through the CLI (K4 a step), streamed and resident steps/s in turns,
+   one packed 5-stack's upload timed on its stream; (b) an NCCL group of
+   world size 1 joined through the MVAE_* variables equals the run
+   without a group bit for bit; (c) two processes sharing the card over
+   gloo (``--dp-worker``) run ``train`` through the CLI, resident,
+   ``--host-sharded`` and ``--corpus-layout sharded``, 20 steps each in
+   f32 and in bf16, and equal one process at the global batch (f32: loss
+   1e-5 relative, parameter checksum 1e-6; bf16: 1e-3 and 1e-5; each
+   bound shown to catch per-process noise on one process), process 0
+   alone logging, K4 launched at 32 rows, their steps/s beside one
+   process's; (d) a stop asked of one process stops both at step 5,
+   saved once, and ``train --resume`` on both continues it to the
+   uninterrupted run's bits;
+   (e) c2_trf and c3_trf on init weights serve the same bits serial and
+   --coalesce 4, and a lone request the bits it gets padded, with the
+   req/s of the slot-at-a-time ops against all slots at once, in turns;
+   K4 at the per-process shape against its plain version, timed.
 
 The last lines are a "details:" JSON line with every check and timing,
 the card's name and power limit, the kernels JSON object, and
@@ -2734,7 +2756,8 @@ def _kind_timing(cfg, state, train_ds, dev, seed: int) -> dict:
 def _kind_serve(name, cfg, model, dev, seed) -> dict:
     """KIND_REQUESTS requests through stdin serial serving and --coalesce
     4: serial answers equal the lone sweep's bars exactly, coalesced ones
-    agree under the flip rule; req/s by host clock for each."""
+    agree under the flip rule (and ``bits_equal`` says whether they equal
+    the serial ones bit for bit); req/s by host clock for each."""
     from musicvae_tpu_torch import cli
 
     thr = cfg.midi.binarize_threshold
@@ -2769,7 +2792,10 @@ def _kind_serve(name, cfg, model, dev, seed) -> dict:
     if name == "c4_cond":       # the pinned labels reach the music
         check(not np.array_equal(got["serial"][0], got["serial"][2]),
               "cond: two requests with other labels gave the same bars")
-    return {"timing": timing, "coalesce_vs_serial": agree}
+    bits_equal = all(np.array_equal(a, b) for a, b in zip(
+        got["coalesce4"], got["serial"]))
+    return {"timing": timing, "coalesce_vs_serial": agree,
+            "bits_equal": bits_equal}
 
 
 def _kind_convert(name, cfg, ck, root, seed) -> dict:
@@ -3148,6 +3174,7 @@ PA_SHORT = ("c2_mxu_wide", "c3_mxu", "c2_mxu_16bar", "c2_trf_32bar")
 PA_SHORT_STEPS = 5
 PA_LOOP_BARS = 8         # closed loop vs teacher: 4 x 8 bars, f32
 PA_LOOP_TOL = 1e-4
+PA_BIT_EQUAL = ("c2_trf", "c3_trf")   # coalesced == serial, bit for bit
 
 
 def _closed_loop_vs_teacher(name: str, seed: int, dev) -> dict:
@@ -3204,6 +3231,7 @@ def patch_attn_phase(seed: int, dev: torch.device, card: str):
     from musicvae_tpu_torch.checkpoints import io as ckpt_io
     from musicvae_tpu_torch.config import GenSpec
     from musicvae_tpu_torch.generate import sampler
+    from musicvae_tpu_torch.models.vae import build_model
     from musicvae_tpu_torch.ops import _kernels
 
     _kernels.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
@@ -3283,6 +3311,22 @@ def patch_attn_phase(seed: int, dev: torch.device, card: str):
             torch.cuda.synchronize()
             counted(dict(_kernels.LAUNCHES))
             log(f"patch_attn {name} serve ({card}): {res['serve']}")
+            if name in PA_BIT_EQUAL:
+                # the attention core runs its batch-dependent ops a slot
+                # at a time: coalesced bars are the serial ones exactly
+                check(res["serve"]["bits_equal"],
+                      f"{name}: --coalesce 4 bars differ from serial ones")
+            if name == "c2_mxu":
+                # the trained weights serve near-empty bars: hold the
+                # comparison on the untrained init too, which gives notes
+                init = build_model(gcfg, device=dev, seed=seed)
+                res["serve_init"] = _kind_serve(name, gcfg, init, dev, seed)
+                log(f"patch_attn {name} serve, init weights ({card}): "
+                    f"{res['serve_init']}")
+                dens = res["serve_init"]["timing"]["serial"]["density"]
+                check(dens > 0.01, f"{name}: init weights served density "
+                                   f"{dens}: no notes to compare")
+                del init
             if name == "c2_trf":
                 st = os.path.join(root, "c2_trf.safetensors")
                 rc, _, e = _cli(["convert", "--to-safetensors", ck, "--out",
@@ -3349,6 +3393,586 @@ def patch_attn_phase(seed: int, dev: torch.device, card: str):
     log(f"patch_attn launches: {total}")
     log(f"patch_attn phase: {out['seconds']:.1f} s")
     return {"patch_attn": total}, out
+
+
+PAR_STEPS = 20           # steps of each data-parallel run, in dispatches of
+PAR_K = 5                # PAR_K
+PAR_TIMED = 30           # steps of each streamed / resident timing run
+PAR_WORLD = 2            # gloo processes sharing the one card
+PAR_MODES = ("resident", "host_sharded", "sharded")
+PAR_FLAGS = {"resident": [], "host_sharded": ["--host-sharded"],
+             "sharded": ["--corpus-layout", "sharded"]}
+PAR_F32 = "c2_gru_4bar_f32"   # c2 in f32, registered by this script
+PAR_WAIT_S = 600         # bound on the gloo workers
+# two processes against one at the global batch, (loss, parameter
+# checksum) relative: in f32 tests/test_torch_dp_train.py's tolerances
+# (the order of the sums alone differs); in bf16 the rows of a 32-row
+# batch also round otherwise than in a 64-row one (cuDNN and cuBLAS pick
+# their algorithms by the batch), which 20 Adam steps carry on. Each
+# bound must catch the fault ``_noise_control`` emulates, in this run
+DP_RTOL = {"float32": (1e-5, 1e-6), "bfloat16": (1e-3, 1e-5)}
+
+
+def _register_f32() -> None:
+    """c2_gru_4bar in f32 under ``PAR_F32``, in this process's registry
+    of configs, for the command line's ``--config``."""
+    from musicvae_tpu_torch import config as config_lib
+
+    base = config_lib.get_config("c2_gru_4bar")
+    config_lib._CONFIGS[PAR_F32] = base.replace(
+        name=PAR_F32, model=dataclasses.replace(base.model, dtype="float32"))
+
+
+def _par_config(seed: int, dtype: str = "bfloat16", **train_kw):
+    """Full-width c2_gru_4bar (bf16 unless ``dtype``, batch 64),
+    PAR_STEPS steps logged every PAR_K, no eval."""
+    from musicvae_tpu_torch.config import get_config
+
+    base = get_config("c2_gru_4bar")
+    kw = dict(num_steps=PAR_STEPS, log_every=PAR_K, eval_every=0,
+              ckpt_every=0, seed=seed)
+    return base.replace(
+        model=dataclasses.replace(base.model, dtype=dtype),
+        train=dataclasses.replace(base.train, **{**kw, **train_kw}))
+
+
+def _par_argv(mode: str, dtype: str, root: str, run: str, rank: int):
+    """The ``train`` command line of a data-parallel run: full-width c2
+    (the registered config in bf16, ``PAR_F32`` in f32) on the cache
+    <root>/c2.npz, PAR_STEPS steps logged every PAR_K, no eval, into
+    <root>/ck_<run> (shared by the processes), logging into
+    <root>/logs_<run>_<rank>."""
+    return ["train", "--config",
+            "c2_gru_4bar" if dtype == "bfloat16" else PAR_F32,
+            "--data", os.path.join(root, "c2.npz"), "--steps", PAR_STEPS,
+            "--log-every", PAR_K, "--eval-every", 0,
+            "--ckpt-dir", os.path.join(root, f"ck_{run}"),
+            "--log-dir", os.path.join(root, f"logs_{run}_{rank}"),
+            *PAR_FLAGS[mode]]
+
+
+def _cli_config(argv):
+    """The config the ``train`` command line ``argv`` runs (fresh)."""
+    from musicvae_tpu_torch import cli
+
+    return cli.train_config(cli.make_parser().parse_args(
+        [str(a) for a in argv]))
+
+
+def _dp_runs():
+    """(key, mode, dtype) of every two-process comparison."""
+    return [(f"{mode}_{dt}", mode, dt) for dt in DP_RTOL
+            for mode in PAR_MODES]
+
+
+def _param_sum(state) -> float:
+    return float(sum(p.detach().double().abs().sum().item()
+                     for p in state.params))
+
+
+def _timed_train(cfg, data, dev, **kw):
+    """``train()`` with the host clock read at each log: (state, metrics,
+    steps/s between the first and the last log, launches)."""
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.train import trainer
+
+    stamps = []
+    _kernels.reset_launches()
+    _, state, metrics = trainer.train(
+        cfg, data, device=dev,
+        log_fn=lambda s, m: stamps.append((s, time.perf_counter())), **kw)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    rate = None
+    if len(stamps) > 1:
+        rate = (stamps[-1][0] - stamps[0][0]) / (stamps[-1][1]
+                                                 - stamps[0][1])
+    return state, metrics, rate, launches
+
+
+def _one_process_data(mode: str, ds, cfg):
+    """What ``train()`` reads on one process at the global batch in
+    ``mode``: the global batches the PAR_WORLD processes of that mode make
+    between them (each host shard's stream, or each shard's rows of the
+    sharded layout's ids, side by side)."""
+    from musicvae_tpu_torch.train.sharded_corpus import (
+        make_sharded_id_schedule)
+
+    b, seed = cfg.train.batch_size, cfg.train.seed
+    if mode == "host_sharded":
+        its = [ds.host_shard(p, PAR_WORLD, seed=seed).iterator(
+            b // PAR_WORLD, seed=seed, x_dtype=np.uint8)
+            for p in range(PAR_WORLD)]
+
+        def merged():
+            while True:
+                yield {"x": np.concatenate([next(i)["x"] for i in its])}
+
+        return merged()
+    if mode == "sharded":
+        shards = [ds.host_shard(p, PAR_WORLD, seed=seed)
+                  for p in range(PAR_WORLD)]
+        ids = make_sharded_id_schedule(
+            seed, np.array([len(s) for s in shards]), b)
+        half = b // PAR_WORLD
+
+        def drawn():
+            step = 0
+            while True:
+                yield {"x": np.concatenate([
+                    s.batch(ids(step)[p * half:(p + 1) * half],
+                            np.uint8)["x"] for p, s in enumerate(shards)])}
+                step += 1
+
+        return drawn()
+    return ds
+
+
+def _cli_train_run(argv, dev) -> dict:
+    """``train`` through the command line in this process: the step and
+    parameter checksum of the checkpoint it left, the final loss it
+    printed, steps/s from its metrics log (process 0's; between the first
+    and the last log) and the launches it made."""
+    import ast
+
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.train import trainer
+
+    args = [str(a) for a in argv]
+    _kernels.reset_launches()
+    rc, o, e = _cli(args)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    check(rc == 0 and "final metrics: " in o,
+          f"{' '.join(args)}: rc {rc}, {e[-2000:]}")
+    final = ast.literal_eval(
+        o[o.rindex("final metrics: ") + len("final metrics: "):]
+        .splitlines()[0])
+    manager = ckpt_io.make_manager(args[args.index("--ckpt-dir") + 1])
+    _, state = trainer.create_state(ckpt_io.restore_config(manager),
+                                    device=dev)
+    state, _ = ckpt_io.restore(manager, state)
+    log = os.path.join(args[args.index("--log-dir") + 1], "metrics.jsonl")
+    rate = None
+    if os.path.exists(log):
+        with open(log) as f:
+            sps = [json.loads(ln)["steps_per_sec"] for ln in f][1:]
+        rate = len(sps) / sum(1.0 / r for r in sps) if sps else None
+    out = {"step": int(state.step), "loss": float(final["loss"]),
+           "param_sum": _param_sum(state), "steps_per_s": rate,
+           "logged": os.path.exists(log), "launches": launches,
+           "resumed": "resumed from step" in e}
+    del state
+    return out
+
+
+def dp_worker(argv) -> int:
+    """One of the PAR_WORLD gloo processes of the parallel phase (run as
+    ``chip_smoke.py --dp-worker RANK WORLD HOST:PORT DIR``). It joins the
+    group over gloo (the processes share the one card, where NCCL refuses
+    two ranks; the command's own join then does nothing) and runs
+    ``train`` through the command line for each of ``_dp_runs``; then a
+    stop asked of process 1 alone, through ``train()``, and
+    ``train --resume`` from the step that stop saved, to the end of the
+    run. One JSON line."""
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.data.dataset import PianoRollDataset
+    from musicvae_tpu_torch.parallel import distributed
+
+    rank, world, coord, work = (int(argv[0]), int(argv[1]), argv[2],
+                                argv[3])
+    os.environ.update(MVAE_COORDINATOR=coord, MVAE_NUM_PROCS=str(world),
+                      MVAE_PROC_ID=str(rank))
+    dev = torch.device("cuda", 0)
+    check(distributed.initialize_from_env(device=dev, backend="gloo"),
+          "no group")
+    _register_f32()
+    out = {}
+    for key, mode, dtype in _dp_runs():
+        out[key] = _cli_train_run(_par_argv(mode, dtype, work, key, rank),
+                                  dev)
+
+    class Stop:
+        requested = rank == 1
+
+    argv_pre = _par_argv("resident", "bfloat16", work, "preempt", rank)
+    manager = ckpt_io.make_manager(os.path.join(work, "ck_preempt"))
+    state, metrics, _, launches = _timed_train(
+        _cli_config(argv_pre),
+        PianoRollDataset.load_npy(os.path.join(work, "c2.npz")), dev,
+        ckpt_manager=manager, stop=Stop())
+    manager.wait_until_finished()
+    torch.distributed.barrier()
+    manager.reload()
+    out["preempt"] = {"step": int(state.step), "launches": launches,
+                      "saved_steps": manager.all_steps(),
+                      "loss": float(metrics["loss"])}
+    del state
+    out["resume"] = _cli_train_run(argv_pre + ["--resume"], dev)
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"rank": rank, "modes": out}), flush=True)
+    return 0
+
+
+def _noise_control(dev, ds, root: str) -> dict:
+    """The fault the two-process comparison must catch, read on one
+    process: every process drawing the noise of only its own B/P rows
+    from its generator, seeded alike, so that each process's rows get the
+    first B/P rows of the global draw. Emulated at the global batch with
+    the noise handed in, PAR_STEPS steps of the resident config from one
+    seed: the global draw against its first B/P rows repeated. Its
+    distance from the sound run (relative, loss and parameter checksum)
+    must exceed ``DP_RTOL`` in each dtype."""
+    from musicvae_tpu_torch.models.vae import draw_eps
+    from musicvae_tpu_torch.train import trainer
+
+    out = {}
+    for dtype, rtol in DP_RTOL.items():
+        cfg = _cli_config(_par_argv("resident", dtype, root, "control", 0))
+        b = cfg.train.batch_size
+        ids = trainer.make_id_schedule(cfg.train.seed, len(ds), b)
+        gen = torch.Generator(dev).manual_seed(cfg.train.seed + 1)
+        eps = [draw_eps(cfg.model, b, gen) for _ in range(PAR_STEPS)]
+        res = {}
+        for what in ("global", "per_process"):
+            _, state = trainer.create_state(cfg, device=dev)
+            step = trainer.make_train_step(cfg, state.model)
+            with trainer.deterministic_algorithms():
+                for j in range(PAR_STEPS):
+                    e = eps[j]
+                    if what == "per_process":
+                        e = tuple(torch.cat([x[:b // PAR_WORLD]] * PAR_WORLD)
+                                  for x in e)
+                    x = torch.from_numpy(ds.batch(ids(j), x_dtype=np.uint8)
+                                         ["x"]).to(dev)
+                    _, m = step(state, {"x": x}, e)
+            res[what] = (float(m["loss"]), _param_sum(state))
+            del state, step
+        (lg, sg), (lp, sp) = res["global"], res["per_process"]
+        out[dtype] = {"loss_rel_diff": abs(lp - lg) / abs(lg),
+                      "param_sum_rel_diff": abs(sp - sg) / sg,
+                      "rtol": rtol}
+        out[dtype]["caught"] = (out[dtype]["loss_rel_diff"] > rtol[0]
+                                or out[dtype]["param_sum_rel_diff"]
+                                > rtol[1])
+    return out
+
+
+def _stream_checks(seed: int, dev, ds, card: str) -> dict:
+    """(a) K streamed steps equal K single steps bit for bit; the upload
+    of one K-stack timed on its side stream beside its host cost."""
+    from musicvae_tpu_torch.train import trainer
+
+    cfg = _par_config(seed)
+    b = cfg.train.batch_size
+    ids = trainer.make_id_schedule(seed, len(ds), b)
+    host = [ds.batch(ids(j), x_dtype=np.uint8) for j in range(PAR_K)]
+    stacked = trainer._stack_host_batches(host, cond=False)
+    uploader = trainer._StackUploader(dev)
+    _, state_a = trainer.create_state(cfg, device=dev, seed=seed)
+    _, state_b = trainer.create_state(cfg, device=dev, seed=seed)
+    multi = trainer.make_train_step_multi(cfg, state_a.model, packed_x=True)
+    single = trainer.make_train_step(cfg, state_b.model)
+    with trainer.deterministic_algorithms():
+        tensors, event = uploader.put(stacked)
+        torch.cuda.current_stream(dev).wait_event(event)
+        _, m_multi = multi(state_a, tensors)
+        for h in host:
+            _, m_single = single(state_b, {"x": torch.from_numpy(
+                h["x"]).to(dev)})
+    torch.cuda.synchronize()
+    same = (all(torch.equal(x, y) for x, y in zip(_state_bits(state_a),
+                                                   _state_bits(state_b)))
+            and all(torch.equal(m_multi[k], m_single[k]) for k in m_single))
+    log(f"parallel (a) {PAR_K} streamed steps vs {PAR_K} single steps: "
+        f"same bits {same}")
+    check(same, "streamed steps differ from single steps")
+    # one K-stack's upload: the host's staging and enqueue, and the copy
+    # on the side stream (events), repeated
+    host_ms, copy_ms = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(uploader.stream)
+        t0 = time.perf_counter()
+        _, event = uploader.put(stacked)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(uploader.stream)
+        end.synchronize()
+        copy_ms.append(start.elapsed_time(end))
+    nbytes = sum(v.nbytes for v in stacked.values())
+    up = {"stack_bytes": nbytes, "k": PAR_K,
+          "put_host_ms": host_ms[1:], "copy_stream_ms": copy_ms[1:]}
+    log(f"parallel (a) upload of one packed {PAR_K}-stack ({nbytes} bytes, "
+        f"{card}): {up}")
+    del state_a, state_b
+    return {"streamed_equals_single": same, "upload": up}
+
+
+def _nccl_world_one(seed: int, dev, ds) -> tuple:
+    """(b) one NCCL process group of world size 1 joined through the
+    MVAE_* variables: its run equals the run without a group, bit for
+    bit (the gradients then pass one all-reduce over NCCL)."""
+    from musicvae_tpu_torch.parallel import distributed
+
+    cfg = _par_config(seed)
+    base, m_base, _, _ = _timed_train(cfg, ds, dev)
+    saved = {k: os.environ.get(k) for k in ("MVAE_COORDINATOR",
+                                             "MVAE_NUM_PROCS",
+                                             "MVAE_PROC_ID")}
+    os.environ.update(MVAE_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                      MVAE_NUM_PROCS="1", MVAE_PROC_ID="0")
+    try:
+        check(distributed.initialize_from_env(device=dev), "no group")
+        backend = torch.distributed.get_backend()
+        check(backend == "nccl", f"backend {backend}")
+        grp, m_grp, _, launches = _timed_train(cfg, ds, dev)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    same = (all(torch.equal(x, y) for x, y in zip(_state_bits(base),
+                                                   _state_bits(grp)))
+            and all(torch.equal(m_base[k], m_grp[k]) for k in m_base))
+    out = {"backend": backend, "same_bits": same,
+           "loss": float(m_grp["loss"])}
+    log(f"parallel (b) NCCL world 1 vs no group: {out}")
+    check(same, "the NCCL world-1 run differs from the run without one")
+    return launches, out
+
+
+def _c1_bit_equality(seed: int, dev, card: str) -> dict:
+    """(e) c2_trf and c3_trf on their untrained init weights: serial and
+    --coalesce 4 serve the same bits, and a lone request (W=1) the bits
+    it gets padded among others; then the same requests with every slot
+    computed at once (``layers.per_slot`` bypassed, the arithmetic it
+    replaced), for the req/s that running the batch-dependent ops a slot
+    at a time costs."""
+    from musicvae_tpu_torch import cli
+    from musicvae_tpu_torch.config import GenSpec
+    from musicvae_tpu_torch.models import layers
+    from musicvae_tpu_torch.models.vae import build_model
+
+    out = {}
+    for name in PA_BIT_EQUAL:
+        cfg = _kind_config(name, seed).replace(
+            gen=GenSpec(num_bars=GEN_BARS, num_samples=GEN_SAMPLES))
+        model = build_model(cfg, device=dev, seed=seed)
+        real = layers.per_slot
+
+        def at_once():
+            layers.per_slot = lambda fn, slots, *xs: fn(*xs)
+            try:
+                return _kind_serve(name, cfg, model, dev, seed)
+            finally:
+                layers.per_slot = real
+
+        # in turns: at once, a slot at a time, a slot at a time, at once
+        whole = [at_once()]
+        res = _kind_serve(name, cfg, model, dev, seed)
+        res["repeat"] = _kind_serve(name, cfg, model, dev, seed)
+        whole.append(at_once())
+        res["slots_at_once"] = whole
+        runner = cli._CoalescedRunner(cli.Service(cfg, model), STACK_W)
+        lone = runner.run([(cli.seed_generator(seed + 1, dev), None)])
+        full = runner.run([(cli.seed_generator(seed + 1, dev), None),
+                           (cli.seed_generator(seed + 2, dev), None)])
+        res["lone_equals_full"] = bool(np.array_equal(lone[0], full[0]))
+        log(f"parallel (e) {name} init weights, serial vs --coalesce "
+            f"{STACK_W} ({card}): {res}")
+        check(res["bits_equal"] and res["repeat"]["bits_equal"]
+              and res["lone_equals_full"],
+              f"{name}: coalesced bars differ from serial ones")
+        out[name] = res
+        del model, runner
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(seed: int, dev: torch.device, card: str):
+    """A13's data-parallel half on the card at full width (c2_gru_4bar,
+    bf16, 64 x 4, the corpus cache of ``make_bar_cache``): (a) streaming:
+    K streamed steps equal K single steps bit for bit, ``train --stream``
+    through the CLI, streamed steps/s beside resident steps/s in turns,
+    and one K-stack's upload timed on its side stream; (b) an NCCL group
+    of world size 1 through the MVAE_* variables, bit-equal to no group;
+    (c) two processes sharing the card over gloo run ``train`` through
+    the CLI, resident, host-sharded and sharded-corpus, in f32 and bf16,
+    each against one process at the global batch (``DP_RTOL``, which must
+    catch ``_noise_control``'s fault); (d) a stop asked of one process
+    stops both at one step, saved once, and ``train --resume`` on both
+    continues it to the uninterrupted run's bits; (e) C.1's
+    check: c2_trf and c3_trf serve the same bits serial and coalesced.
+    K4 is held against its plain version at the per-process shape."""
+    import shutil
+    import tempfile
+
+    from musicvae_tpu_torch.ops import _kernels
+
+    _kernels.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="parallel_smoke_",
+                            dir=_kernels.BUILD_ROOT.parent)
+    out, runs = {"card": card}, {}
+    t_phase = time.perf_counter()
+    ds = make_bar_cache(seed)
+    coord = f"127.0.0.1:{_free_port()}"
+    procs = []
+    try:
+        out["stream"] = _stream_checks(seed, dev, ds, card)
+        cache = os.path.join(root, "c2.npz")
+        ds.save_npy(cache)
+        _kernels.reset_launches()
+        rc, o, e = _cli(["train", "--data", cache, "--stream", "--steps",
+                         PAR_STEPS, "--log-every", PAR_K, "--eval-every", 0,
+                         "--ckpt-dir", os.path.join(root, "ck_stream"),
+                         "--log-dir", os.path.join(root, "logs")])
+        torch.cuda.synchronize()
+        runs["parallel_stream"] = dict(_kernels.LAUNCHES)
+        check(rc == 0 and "final metrics" in o,
+              f"train --stream: rc {rc}, {e[-2000:]}")
+        out["stream"]["cli"] = {"rc": rc, "final": o.strip()[-300:]}
+        log(f"parallel (a) train --stream: {o.strip()[-300:]}, launches "
+            f"{runs['parallel_stream']}")
+        timing = []
+        cfg_t = _par_config(seed, num_steps=PAR_TIMED)
+        for what in ("resident", "stream", "stream", "resident"):
+            data = ds if what == "resident" else ds.iterator(
+                cfg_t.train.batch_size, seed=seed, x_dtype=np.uint8)
+            _, m, rate, _ = _timed_train(cfg_t, data, dev)
+            timing.append({"path": what, "steps_per_s": rate,
+                           "loss": float(m["loss"])})
+        out["stream"]["timing"] = timing
+        log(f"parallel (a) steps/s in turns ({card}): {timing}")
+        # the upload against the host time of the dispatch it hides under
+        up = out["stream"]["upload"]
+        up["dispatch_host_ms"] = [PAR_K / t["steps_per_s"] * 1e3
+                                  for t in timing if t["path"] == "stream"]
+        up["copy_share_of_dispatch"] = (max(up["copy_stream_ms"])
+                                        / min(up["dispatch_host_ms"]))
+        log(f"parallel (a) upload overlap: copy {max(up['copy_stream_ms']):.3f}"
+            f" ms a stack at most, against {min(up['dispatch_host_ms']):.1f}"
+            f" ms of host time a dispatch")
+
+        # (c), (d): the two gloo processes, with the card and the host to
+        # themselves while they run (their steps/s are timed)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker",
+             str(r), str(PAR_WORLD), coord, root],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            env={"GLOO_SOCKET_IFNAME": "lo",
+                 **{k: v for k, v in os.environ.items()
+                    if not k.startswith("MVAE_")}})
+            for r in range(PAR_WORLD)]
+        results = []
+        for p in procs:
+            o, e = p.communicate(timeout=PAR_WAIT_S)
+            check(p.returncode == 0, f"dp worker: {e.decode()[-3000:]}")
+            lines = [ln for ln in o.decode().splitlines()
+                     if ln.startswith("{")]
+            check(bool(lines), f"dp worker printed nothing: {o[-2000:]}")
+            results.append(json.loads(lines[-1])["modes"])
+
+        runs["parallel_nccl1"], out["nccl_world1"] = _nccl_world_one(
+            seed, dev, ds)
+
+        _register_f32()
+        one = {}
+        for key, mode, dtype in _dp_runs():
+            cfg = _cli_config(_par_argv(mode, dtype, root, key, 0))
+            state, m, rate, _ = _timed_train(
+                cfg, _one_process_data(mode, ds, cfg), dev)
+            one[key] = {"step": int(state.step), "loss": float(m["loss"]),
+                        "param_sum": _param_sum(state),
+                        "steps_per_s": rate}
+            del state
+        out["noise_control"] = _noise_control(dev, ds, root)
+        log(f"parallel (c) control, per-process noise against the global "
+            f"draw, one process ({card}): {out['noise_control']}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    failed = []       # (c)'s disagreements, checked after (d) and (e)
+    try:
+        dp = {}
+        for key, mode, dtype in _dp_runs():
+            two, ref = [r[key] for r in results], one[key]
+            res = {"one_process": ref, "rank0": two[0], "rank1": two[1],
+                   "loss_rel_diff": abs(two[0]["loss"] - ref["loss"])
+                   / abs(ref["loss"]),
+                   "param_sum_rel_diff": abs(two[0]["param_sum"]
+                                             - ref["param_sum"])
+                   / ref["param_sum"], "rtol": DP_RTOL[dtype]}
+            log(f"parallel (c) {key}, 2 gloo processes vs 1 ({card}): "
+                f"{res}")
+            if not (two[0]["loss"] == two[1]["loss"]
+                    and two[0]["param_sum"] == two[1]["param_sum"]):
+                failed.append(f"{key}: the two processes differ")
+            if [r["logged"] for r in two] != [True, False]:
+                failed.append(f"{key}: not process 0 alone logged")
+            if not (two[0]["step"] == ref["step"] == PAR_STEPS
+                    and res["loss_rel_diff"] <= DP_RTOL[dtype][0]
+                    and res["param_sum_rel_diff"] <= DP_RTOL[dtype][1]):
+                failed.append(f"{key}: two processes differ from one: "
+                              f"{res}")
+            runs[f"parallel_dp_{key}"] = {
+                k: two[0]["launches"][k] + two[1]["launches"][k]
+                for k in two[0]["launches"]}
+            dp[key] = res
+        pre = [r["preempt"] for r in results]
+        log(f"parallel (d) a stop asked of process 1 only: {pre}")
+        check(pre[0]["step"] == pre[1]["step"] == PAR_K
+              and pre[0]["saved_steps"] == pre[1]["saved_steps"] == [PAR_K]
+              and pre[0]["loss"] == pre[1]["loss"],
+              f"the collective stop: {pre}")
+        runs["parallel_dp_preempt"] = {
+            k: pre[0]["launches"][k] + pre[1]["launches"][k]
+            for k in pre[0]["launches"]}
+        # train --resume on both processes from that step: the bits of
+        # the uninterrupted run
+        res = [r["resume"] for r in results]
+        whole = [r["resident_bfloat16"] for r in results]
+        log(f"parallel (d) train --resume from step {PAR_K} on both "
+            f"processes: {[(r['step'], r['loss'], r['param_sum']) for r in res]}"
+            f", uninterrupted {[(r['step'], r['loss'], r['param_sum']) for r in whole]}")
+        check(all(r["resumed"] and (r["step"], r["loss"], r["param_sum"])
+                  == (w["step"], w["loss"], w["param_sum"])
+                  for r, w in zip(res, whole)),
+              f"train --resume on two processes: {res} against {whole}")
+        runs["parallel_dp_resume"] = {
+            k: res[0]["launches"][k] + res[1]["launches"][k]
+            for k in res[0]["launches"]}
+        out["dp"], out["preempt"], out["resume"] = dp, pre, res
+        for dtype, ctl in out["noise_control"].items():
+            check(ctl["caught"], f"DP_RTOL[{dtype!r}] does not catch "
+                                 f"per-process noise: {ctl}")
+        out["c1"] = _c1_bit_equality(seed, dev, card)
+        for path, n in runs.items():
+            check(n["masked_bce_sum_dual"] > 0,
+                  f"K4 not launched on {path}: {n}")
+        rows = {"masked_bce_sum_dual": []}
+        _bce_shape_rows(
+            torch.Generator(dev).manual_seed(seed + 93), dev,
+            torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev),
+            lambda *a, **kw: _shape_row(rows, "parallel", card, *a, **kw),
+            ((f"c2 one of {PAR_WORLD} processes, [32,4,96,128]",
+              (32, 4, 96, 128), ("masked_bce_sum_dual",)),))
+        out["kernel_shapes"] = rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not failed, "; ".join(failed))
+    out["launches"] = runs
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"parallel launches: {runs}")
+    log(f"parallel phase: {out['seconds']:.1f} s")
+    return runs, out
 
 
 def profile_phase(seed: int, dev: torch.device):
@@ -3437,11 +4061,23 @@ def profile_phase(seed: int, dev: torch.device):
 
 
 PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train",
-          "ckpt", "corpus", "serve_stack", "kinds", "patch_attn")
+          "ckpt", "corpus", "serve_stack", "kinds", "patch_attn", "parallel")
+
+
+def _card_settings() -> None:
+    """f32 convs and matmuls in f32 (no TF32), and deterministic cuBLAS
+    for the train phases (read at the process's first matmul)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def main() -> int:
     global LOG_FILE
+    if sys.argv[1:2] == ["--dp-worker"]:
+        _card_settings()
+        return dp_worker(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None, metavar="PHASES",
@@ -3461,11 +4097,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    # deterministic cuBLAS for the train phase; read at the first matmul
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    _card_settings()
     dev = torch.device("cuda", 0)
 
     if args.log_file is not None:
@@ -3515,6 +4147,14 @@ def main() -> int:
                 e["name"].split()[0])
             if rows:
                 e["patch_attn_shapes"] = rows
+    if "parallel" in only:
+        par_runs, details["parallel"] = parallel_phase(args.seed, dev, card)
+        runs.update(par_runs)
+        for e in entries:
+            rows = details["parallel"]["kernel_shapes"].get(
+                e["name"].split()[0])
+            if rows:
+                e["parallel_shapes"] = rows
     if "profile" in only:
         details["profile"] = profile_phase(args.seed, dev)
 

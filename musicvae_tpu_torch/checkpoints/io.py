@@ -17,6 +17,10 @@ steps newest first, twice each, falls back past a step that fails, and
 quarantines the failed newer steps (``<step>.corrupt``) once an older step
 of the same template has restored.
 
+Under multi-process training (parallel/distributed.py) process 0 alone
+writes and quarantines, and every process passes a barrier after a save;
+``restore`` reads the same files on every process.
+
 A JAX checkpoint (the Orbax layout) is brought across by the repo-root
 script ``import_orbax_checkpoint.py``, on a machine with jax.
 """
@@ -34,6 +38,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 from musicvae_tpu_torch import config as config_lib
+from musicvae_tpu_torch.parallel import distributed
 
 STATE_FILE = "state.pt"
 CONFIG_FILE = "config.json"
@@ -178,18 +183,25 @@ def make_manager(directory: str, keep: int = 3) -> CheckpointManager:
 def save(manager: CheckpointManager, state, cfg: config_lib.Config,
          wait: bool = False) -> bool:
     """Save ``state`` (a train/trainer.py TrainState) with ``cfg``; returns
-    whether the step was written. False means the directory already holds
-    this step or a newer one. The copy to the host happens here, on the
-    caller's thread, and is the only wait for the card; the file write
-    runs on the manager's thread (``wait`` joins it). A second save waits
-    for the first."""
-    step = int(state.step)
-    manager.wait_until_finished()
-    latest = manager.latest_step()
-    if latest is not None and step <= latest:
-        return False
-    return manager.write(step, state.state_dict(device="cpu"),
-                         config_to_json(cfg), wait=wait)
+    whether this process wrote the step. False means the directory
+    already holds this step or a newer one, or that this is not process 0
+    of a process group: every process calls ``save``, process 0 writes
+    (every process holds the same state) and all of them then pass a
+    barrier. The copy to the host happens here, on the caller's thread,
+    and is the only wait for the card; the file write runs on the
+    manager's thread (``wait`` joins it). A second save waits for the
+    first."""
+    written = False
+    if distributed.rank() == 0:
+        step = int(state.step)
+        manager.wait_until_finished()
+        latest = manager.latest_step()
+        if latest is None or step > latest:
+            written = manager.write(step, state.state_dict(device="cpu"),
+                                    config_to_json(cfg), wait=wait)
+    if distributed.world_size() > 1:
+        torch.distributed.barrier()
+    return written
 
 
 def _check_layout(manager: CheckpointManager, step: int) -> None:
@@ -280,7 +292,8 @@ def restore(manager: CheckpointManager, template_state,
             failed.append(s)
             continue
         for fs in failed:
-            _quarantine_step(manager, fs)
+            if distributed.rank() == 0:
+                _quarantine_step(manager, fs)
         if failed:
             manager.reload()
         return template_state, restored

@@ -79,6 +79,7 @@ from musicvae_tpu_torch.generate.sampler import (
 from musicvae_tpu_torch.midi.smf import SMFError
 from musicvae_tpu_torch.models.vae import PianoRollVAE, build_model
 from musicvae_tpu_torch.ops.pack import pack_bits, unpack_bits_np
+from musicvae_tpu_torch.parallel import distributed, make_mesh
 
 # the JAX package's wording, for the commands that take --ema
 _EMA_ERROR = ("error: --ema needs a checkpoint trained with "
@@ -955,11 +956,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
         stop_reload.set()
 
 
-# train flags of the JAX package that later slices of the port bring,
-# with the ROADMAP.md item each waits for
-_LATER_TRAIN_FLAGS = {"stream": "A13", "host_sharded": "A13"}
-
-
 class _UsageError(ValueError):
     """A flag error found past argparse (e.g. a --meter the grid cannot
     represent). main() prints it as a one-line error; every other
@@ -1122,20 +1118,6 @@ def train_config(args: argparse.Namespace) -> Config:
     return _apply_midi_overrides(_with_conv1_flag(cfg, args), args)
 
 
-def _refused(args: argparse.Namespace) -> int:
-    """2 after naming the flags of later ROADMAP.md items, else 0."""
-    later = [f"--{f.replace('_', '-')} (ROADMAP.md item {item})"
-             for f, item in _LATER_TRAIN_FLAGS.items()
-             if getattr(args, f, None) not in (None, False)]
-    if getattr(args, "corpus_layout", None) == "sharded":
-        later.append("--corpus-layout sharded (ROADMAP.md item A13)")
-    if later:
-        print(f"error: {', '.join(later)} not in the PyTorch port yet",
-              file=sys.stderr)
-        return 2
-    return 0
-
-
 def _resume(args, manager, overrides: dict):
     """(config, state) of the run ``--resume`` continues, or (None, rc)
     after an error: the checkpoint's config wins, the command line's
@@ -1227,14 +1209,45 @@ def _train_data(args: argparse.Namespace, cfg: Config):
         cfg.midi, cfg.model.num_bars)
 
 
+def _train_stream(args: argparse.Namespace, cfg: Config, ds):
+    """What ``train()`` reads: the resident dataset ``ds``; with
+    ``--stream`` its iterator of global batches; with ``--host-sharded``
+    this process's ``host_shard`` streaming its rows of each global batch
+    (``HostLocalBatches``). None after an error."""
+    from musicvae_tpu_torch.data.dataset import HostLocalBatches
+
+    b, seed = cfg.train.batch_size, cfg.train.seed
+    if args.host_sharded:
+        # eval would need every process to hold the same holdout: the
+        # full-corpus contract this mode removes
+        if cfg.train.eval_every > 0:
+            print("error: --host-sharded is a streaming mode without "
+                  "in-training eval (hosts hold disjoint corpus shards; "
+                  "the replicated eval sweep needs identical host data). "
+                  "Set --eval-every 0.", file=sys.stderr)
+            return None
+        pc, rank = distributed.world_size(), distributed.rank()
+        if b % pc:
+            print(f"error: batch_size {b} not divisible by {pc} processes",
+                  file=sys.stderr)
+            return None
+        shard = ds.host_shard(rank, pc, seed=seed)
+        print(f"host shard {rank}/{pc}: {len(shard)} windows "
+              f"({shard.bars.shape[0]} bars resident on this host)",
+              file=sys.stderr)
+        return HostLocalBatches(shard.iterator(b // pc, seed=seed,
+                                               x_dtype=np.uint8))
+    if args.stream:
+        return ds.iterator(b, seed=seed, x_dtype=np.uint8)
+    return ds
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     from musicvae_tpu_torch.checkpoints import io as ckpt_io
     from musicvae_tpu_torch.train.preemption import GracefulStop
     from musicvae_tpu_torch.train.trainer import train
     from musicvae_tpu_torch.utils.logging import MetricsLogger
 
-    if _refused(args):
-        return 2
     cfg = train_config(args)
     if args.data and not os.path.exists(args.data):
         print(f"error: --data {args.data} does not exist", file=sys.stderr)
@@ -1265,19 +1278,26 @@ def cmd_train(args: argparse.Namespace) -> int:
             os.path.join(args.ckpt_dir, "best"), keep=1)
         print(f"holdout: {len(eval_ds)} eval windows ({len(ds)} train), "
               f"eval every {cfg.train.eval_every} steps", file=sys.stderr)
-    print(f"dataset: {len(ds)} windows; device: {args.device}",
+    world, rank = distributed.world_size(), distributed.rank()
+    print(f"dataset: {len(ds)} windows; device: {args.device}"
+          + (f"; process {rank} of {world}" if world > 1 else ""),
           file=sys.stderr)
-    logger = MetricsLogger(args.log_dir)
+    data = _train_stream(args, cfg, ds)
+    if data is None:
+        return 2
+    # the metrics are the group's averages: process 0 logs them
+    logger = MetricsLogger(args.log_dir) if rank == 0 else None
     # SIGTERM/SIGINT: finish the dispatch in flight, checkpoint the exact
     # step, exit 0 with a resume hint
     try:
         with GracefulStop() as stop:
             _, state, metrics = train(
-                cfg, ds, ckpt_manager=manager, log_fn=logger, state=state,
+                cfg, data, ckpt_manager=manager, log_fn=logger, state=state,
                 eval_data=eval_ds, best_ckpt_manager=best_manager,
                 stop=stop, device=args.device)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     if best_manager is not None:
         best_manager.wait_until_finished()
     ckpt_io.save(manager, state, cfg, wait=True)
@@ -1960,14 +1980,25 @@ def make_parser() -> argparse.ArgumentParser:
                         "shift in [-K, +K] semitones per step (0 = off)")
     p.add_argument("--holdout-frac", type=float, default=None)
     p.add_argument("--corpus-layout", choices=["replicated", "sharded"],
-                   default=None)
+                   default=None,
+                   help="resident bar-cache layout: the whole corpus on "
+                        "every device (default) or dealt piece-wise over "
+                        "the data-parallel processes, 1/P of it a device "
+                        "(train/sharded_corpus.py)")
+    p.add_argument("--stream", action="store_true",
+                   help="stream host batches instead of the device-"
+                        "resident cache (corpora larger than device "
+                        "memory; bit-packed, uploaded while the device "
+                        "runs the dispatch before)")
+    p.add_argument("--host-sharded", action="store_true",
+                   help="multi-process: each process loads only its "
+                        "PianoRollDataset.host_shard of the corpus and "
+                        "streams its rows of the global batch (implies "
+                        "--stream; no in-training eval)")
     p.add_argument("--use-pallas-conv1", action="store_true",
                    help="first encoder conv, forward and backward, through "
                         "the hand-written CUDA kernels")
     _add_device(p)
-    for flag in ("stream", "host_sharded"):
-        p.add_argument(f"--{flag.replace('_', '-')}", action="store_true",
-                       help="not in the PyTorch port yet")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="reconstruction metrics of a "
@@ -2088,6 +2119,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     from musicvae_tpu_torch.checkpoints.io import OrbaxLayoutError
 
     args = make_parser().parse_args(argv)
+    if args.cmd in ("train", "eval", "generate", "serve"):
+        # the commands that use the device join a multi-process launch
+        # (parallel/distributed.py); preprocess is host-side and waits on
+        # no other process
+        distributed.initialize_from_env(device=args.device)
+        # one card a process: a bare "cuda" is this process's card
+        # (cuda:LOCAL_RANK) for every state the command builds, a resumed
+        # run's included
+        args.device = str(make_mesh(None, args.device).device)
     try:
         return args.fn(args)
     except (FileNotFoundError, OrbaxLayoutError, _UsageError) as e:

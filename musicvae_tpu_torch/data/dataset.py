@@ -10,7 +10,9 @@ assembles small host batches for eval and tests.
 The ``.npz`` layout of ``save_npy`` / ``load_npy`` is the JAX package's, so
 a cache written by either package's ``preprocess`` trains the other.
 ``from_corpus`` tensorizes a MIDI corpus on the host (midi/tensorize.py);
-``host_shard`` waits for multi-process training.
+``host_shard`` deals a process its piece-wise share of the corpus for
+multi-process training, and ``HostLocalBatches`` marks an iterator of a
+process's own rows of the global batch.
 """
 
 from __future__ import annotations
@@ -21,6 +23,25 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 import numpy as np
 
 from musicvae_tpu_torch.config import MidiSpec
+
+
+class HostLocalBatches:
+    """Marks a streaming iterator as yielding per-process local batch
+    slices: each of the P processes feeds ``train()`` an iterator whose
+    batches hold only its own [global_batch / P] rows (typically windows
+    of its ``PianoRollDataset.host_shard``), so no process materializes
+    the global batch. The global batch is the process-order concatenation
+    of the local slices: process p owns rows [p·B/P, (p+1)·B/P)
+    (parallel/mesh.py)."""
+
+    def __init__(self, it: Iterator):
+        self._it = iter(it)
+
+    def __iter__(self) -> Iterator:
+        return self._it
+
+    def __next__(self):
+        return next(self._it)
 
 
 class PianoRollDataset:
@@ -164,11 +185,47 @@ class PianoRollDataset:
 
     def host_shard(self, process_index: int, process_count: int,
                    seed: int = 0) -> "PianoRollDataset":
-        """Per-process corpus shards belong to multi-process training,
-        which the port does not have yet."""
-        raise NotImplementedError(
-            "PianoRollDataset.host_shard belongs to multi-process training, "
-            "which is not in the PyTorch port yet (ROADMAP.md item A13)")
+        """Deterministic per-process corpus shard for multi-process data
+        loading: the JAX package's shards, bit for bit.
+
+        Pieces are dealt round-robin over a permutation seeded (seed, 71)
+        and the shard keeps only its own pieces' bars, so host memory per
+        process is ~corpus/process_count; the returned dataset is
+        self-contained (remapped window starts), so ``batch()`` and
+        ``iterator()`` work unchanged. A process trains on windows of its
+        own shard only (the data-parallel sharded-loader contract, as
+        torch's DistributedSampler); the global batch is the
+        concatenation of the per-shard batches (``HostLocalBatches``)."""
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} not in "
+                             f"[0, {process_count})")
+        pieces = np.unique(self.piece_ids)
+        if process_count > pieces.shape[0]:
+            raise ValueError(
+                f"cannot shard {pieces.shape[0]} pieces over "
+                f"{process_count} processes (each process needs >= 1 "
+                f"piece; legacy caches without piece ids are one piece)")
+        perm = np.random.default_rng((seed, 71)).permutation(pieces)
+        mine = perm[process_index::process_count]
+        win_mask = np.isin(self.piece_ids, mine)
+        if not win_mask.any():
+            raise ValueError(
+                f"shard {process_index}/{process_count} got no windows "
+                "(pieces shorter than num_bars contribute none)")
+        # keep whole pieces: the kept windows' spans, marked by a +1/-1
+        # difference array, are exactly the kept pieces' bars (windows
+        # never cross a piece and tile every in-piece offset)
+        kept_starts = self.starts[win_mask]
+        diff = np.zeros(self.bars.shape[0] + 1, np.int64)
+        np.add.at(diff, kept_starts, 1)
+        np.add.at(diff, kept_starts + self.num_bars, -1)
+        keep_bars = np.cumsum(diff[:-1]) > 0
+        new_index = np.cumsum(keep_bars) - 1
+        return PianoRollDataset(
+            np.ascontiguousarray(self.bars[keep_bars]),
+            new_index[self.starts[win_mask]].astype(np.int32),
+            self.num_bars, self.chords[win_mask], self.keys[win_mask],
+            self.piece_ids[win_mask], grid=self.grid)
 
     # -- serving -------------------------------------------------------------
 

@@ -161,7 +161,8 @@ def _sweep_body(cfg: Config, model: PianoRollVAE):
     dev = next(model.parameters()).device
 
     def body(batch, generator, seed_bar, z0, z1, noise, uniforms,
-             chord=None, key_sig=None, z_phrase0=None, z_phrase1=None):
+             chord=None, key_sig=None, z_phrase0=None, z_phrase1=None,
+             slots=1):
         if z_phrase1 is not None and not (cfg.model.kind == "hier"
                                           and g.interpolate):
             raise ValueError("z_phrase1 morphs the hier phrase latent and "
@@ -181,7 +182,7 @@ def _sweep_body(cfg: Config, model: PianoRollVAE):
         if g.sample_mode == "bernoulli":
             kw.update(uniforms=generator if uniforms is None else uniforms,
                       sample_temperature=g.sample_temperature)
-        return model.generate(z_bars, reset, seed_bar, **kw)[1]
+        return model.generate(z_bars, reset, seed_bar, slots=slots, **kw)[1]
 
     return body
 
@@ -237,9 +238,9 @@ def make_coalesced_generate_fn(cfg: Config, model: PianoRollVAE):
 
     Slot i draws what ``make_generate_fn`` draws for generator i, in the
     same order (``sweep_draws``, then each bar's uniforms in Bernoulli
-    mode). The bars are computed at batch W·B instead of B, so where a
-    library picks another algorithm for the larger batch a logit at the
-    threshold may round to the other side."""
+    mode), and gets the bars a lone sweep gives it: the sweep runs at
+    batch W·B, and the attention core runs the ops whose rows depend on
+    the batch on the card a slot at a time (``layers.per_slot``)."""
     body = _sweep_body(cfg, model)
     g = cfg.gen
     dev = next(model.parameters()).device
@@ -264,7 +265,8 @@ def make_coalesced_generate_fn(cfg: Config, model: PianoRollVAE):
         u = list(generators) if uniforms is None else torch.cat(uniforms)
         bars = body(w * b, None, seed_bars.reshape(w * b,
                                                    *seed_bars.shape[2:]),
-                    None, None, noise, u, chord, key_sig, z_phrase)
+                    None, None, noise, u, chord, key_sig, z_phrase,
+                    slots=w)
         packed = pack_bits(bars)
         return packed.reshape(w, b, *packed.shape[1:])
 

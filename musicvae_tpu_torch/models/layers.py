@@ -256,6 +256,20 @@ class PatchHead(nn.Module):
             self.logits_dtype).contiguous()
 
 
+def per_slot(fn, slots: int, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn`` over each of ``slots`` equal row blocks of ``xs``, the
+    results concatenated: every call sees the shapes a lone slot gives it.
+    On the card a row of the attention's batched matmuls (cuBLAS picks
+    their kernel by the batch count) and of LayerNorm's row means (torch
+    sizes the reduction's blocks by the number of rows) depends on how
+    many rows share the call, so coalesced requests run these ops a slot
+    at a time to get the bits a lone request gets."""
+    if slots == 1:
+        return fn(*xs)
+    return torch.cat([fn(*part) for part in zip(*(x.chunk(slots)
+                                                   for x in xs))])
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` over the last axis: statistics in f32 whatever
     the input dtype, the variance as E[x²] − E[x]² (flax's
@@ -269,15 +283,29 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.compute_dtype = dtype_of(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slots: int = 1) -> torch.Tensor:
+        """``slots`` > 1: the row means a slot at a time (``per_slot``)."""
         xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mean = per_slot(_row_mean, slots, xf)
+        var = (per_slot(_row_mean, slots, xf * xf)
+               - mean * mean).clamp_min(0.0)
         y = (xf - mean) * (torch.rsqrt(var + 1e-6) * self.weight) + self.bias
         return y.to(self.compute_dtype)
 
 
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(-1, keepdim=True)
+
+
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bqhd,bkhd->bhqk", q, k)
+
+
+def _weighted(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 class AttnStack(nn.Module):
@@ -329,21 +357,25 @@ class AttnStack(nn.Module):
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(*x.shape[:-1], self.heads, self.hidden // self.heads)
 
-    def _attend(self, q, k, v, mask) -> torch.Tensor:
+    def _attend(self, q, k, v, mask, slots: int = 1) -> torch.Tensor:
         """q [B,Q,h,d], k and v [B,K,h,d], mask broadcast to [B,h,Q,K] →
         [B,Q,h,d]. f32 operands for QKᵀ: a bf16 matmul would round the
-        scores to bf16."""
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        scores to bf16. ``slots`` > 1: the two batched matmuls a slot at
+        a time (``per_slot``)."""
+        scores = per_slot(_scores, slots, q.float(), k.float())
         scores = scores * (1.0 / (self.hidden // self.heads) ** 0.5)
         w = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", w.to(self.compute_dtype), v)
+        return per_slot(_weighted, slots, w.to(self.compute_dtype), v)
 
-    def _block(self, l: int, h: torch.Tensor, q, k, v, mask) -> torch.Tensor:
+    def _block(self, l: int, h: torch.Tensor, q, k, v, mask,
+               slots: int = 1) -> torch.Tensor:
         """The rest of layer ``l`` once its attention inputs are known:
         the output projection and its residual, then the MLP's."""
-        o = self._attend(self._heads(q), self._heads(k), self._heads(v), mask)
+        o = self._attend(self._heads(q), self._heads(k), self._heads(v),
+                         mask, slots)
         h = h + self.wo[l](o.reshape(*h.shape[:-1], self.hidden))
-        return h + self.mlp_dn[l](_gelu(self.mlp_up[l](self.ln2[l](h))))
+        return h + self.mlp_dn[l](_gelu(self.mlp_up[l](
+            self.ln2[l](h, slots))))
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         n = u.shape[1]
@@ -363,21 +395,25 @@ class AttnStack(nn.Module):
         return self.ln_f(h)
 
     def step(self, cache: KVCache, u: torch.Tensor, pos: int,
-             start: torch.Tensor) -> torch.Tensor:
+             start: torch.Tensor, slots: int = 1) -> torch.Tensor:
         """One bar: u [B,D], ``pos`` the bar's index in the sweep, start
         [B] (int64) the first position of each row's segment → [B,H]. The
-        cache's tensors are written in place."""
+        cache's tensors are written in place. ``slots`` > 1: the batch is
+        that many equal slots of coalesced requests, and each slot's rows
+        come out as a sweep of that slot alone computes them
+        (``per_slot``)."""
         dt = self.compute_dtype
         h = self.inp(u) + self.pos_emb[pos - start].to(dt)
         idx = torch.arange(cache[0][0].shape[1], device=u.device)
         mask = ((idx[None] >= start[:, None])
                 & (idx[None] <= pos))[:, None, None, :]
         for l, (kc, vc) in enumerate(cache):
-            q, k, v = self.qkv[l](self.ln1[l](h)).chunk(3, dim=-1)
+            q, k, v = self.qkv[l](self.ln1[l](h, slots)).chunk(3, dim=-1)
             kc[:, pos] = k
             vc[:, pos] = v
-            h = self._block(l, h[:, None], q[:, None], kc, vc, mask)[:, 0]
-        return self.ln_f(h)
+            h = self._block(l, h[:, None], q[:, None], kc, vc, mask,
+                            slots)[:, 0]
+        return self.ln_f(h, slots)
 
 
 def attn_cache(batch: int, length: int, num_layers: int, hidden: int,

@@ -19,6 +19,7 @@ every module keeps the oracle's top-level state-dict name.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -278,20 +279,22 @@ class BarDecoder(nn.Module):
                   reset: torch.Tensor, u: Optional[torch.Tensor] = None,
                   sample_temperature: float = 1.0,
                   cond: Optional[torch.Tensor] = None,
-                  z_phrase: Optional[torch.Tensor] = None):
+                  z_phrase: Optional[torch.Tensor] = None,
+                  slots: int = 1):
         """One closed-loop bar of the attention core, the arguments of
         ``step`` but the state: (KV cache (``layers.attn_cache``), pos (the
         bar's index in the sweep), start [B] int64 (each row's segment
         start)). A reset bar starts a new segment (start ← pos) while the
-        previous bar keeps conditioning across the seam. Returns (state,
-        logits, bar)."""
+        previous bar keeps conditioning across the seam. ``slots``: the
+        batch's equal slots of coalesced requests (``AttnStack.step``).
+        Returns (state, logits, bar)."""
         cache, pos, start = state
         feat = None
         if self.spec.use_prev_bar:
             feat = self.prev_feat(prev_bar)
         start = torch.where(reset > 0, pos, start)
         out = self.seq_attn.step(cache, self._seq_in(z, feat, cond, z_phrase),
-                                 pos, start)
+                                 pos, start, slots)
         logits = self.head(self._head_in(z, feat, cond, out, None))
         return ((cache, pos + 1, start), logits,
                 self._emit(logits, u, sample_temperature))
@@ -431,7 +434,8 @@ class PianoRollVAE(BarDecoder):
                  sample_temperature: float = 1.0,
                  chord: Optional[torch.Tensor] = None,
                  key_sig: Optional[torch.Tensor] = None,
-                 z_phrase: Optional[torch.Tensor] = None):
+                 z_phrase: Optional[torch.Tensor] = None,
+                 slots: int = 1):
         """Closed-loop generation: z_bars [B,N,z] per-bar latent path, reset
         [B,N] (1.0 at phrase starts), seed_bar [B,T,P] (the first prev-bar
         condition, zeros when None) → (logits [B,N,T,P], bars [B,N,T,P]
@@ -448,7 +452,10 @@ class PianoRollVAE(BarDecoder):
         generator i, as a lone sweep of B/W rows would draw them.
 
         The attention core steps through an N-bar KV cache made once for
-        the sweep; N may not exceed ``attn_max_bars``."""
+        the sweep; N may not exceed ``attn_max_bars``. ``slots`` > 1 says
+        the batch is that many equal slots of coalesced requests: the
+        attention core then gives each slot the bits a lone sweep of its
+        rows gives (``layers.per_slot``)."""
         spec = self.spec
         b, n = z_bars.shape[:2]
         t, p = self.midi.steps_per_bar, self.midi.num_pitches
@@ -477,7 +484,7 @@ class PianoRollVAE(BarDecoder):
                     f"{n}-bar sweep exceeds attn_max_bars="
                     f"{spec.attn_max_bars} (the learned position table); "
                     "raise ModelSpec.attn_max_bars or shorten the sweep")
-            step = self.attn_step
+            step = functools.partial(self.attn_step, slots=slots)
             h = (layers.attn_cache(b, n, spec.attn_layers, spec.gru_hidden,
                                    self.compute_dtype, dev),
                  0, torch.zeros(b, dtype=torch.long, device=dev))

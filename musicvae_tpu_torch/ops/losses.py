@@ -10,7 +10,7 @@ the kernels against.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -37,7 +37,9 @@ def kl_diag_gaussian(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
 
 
 def kl_free_bits(mu: torch.Tensor, logvar: torch.Tensor,
-                 free_bits: float) -> torch.Tensor:
+                 free_bits: float,
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None) -> torch.Tensor:
     """Free-bits KL objective: each latent dimension's batch-mean KL is
     floored at ``free_bits`` nats before summing, so a dimension below the
     floor contributes a constant (zero gradient).
@@ -45,11 +47,24 @@ def kl_free_bits(mu: torch.Tensor, logvar: torch.Tensor,
     Returns the objective summed over latent dims and scaled back by the
     batch size, so ``kl_free_bits(...) / batch`` is a drop-in for
     ``kl_diag_gaussian(...) / batch`` in the minimized loss. ``mu`` and
-    ``logvar``: [B, z] (leading batch axis, any trailing latent axes)."""
+    ``logvar``: [B, z] (leading batch axis, any trailing latent axes).
+
+    ``reduce``: when these are one process's rows of a batch split evenly
+    over a process group, the map from this process's per-dimension KL
+    sums [z] (detached) to their mean over the group's processes. The
+    floor then applies to the global batch's per-dimension means, as the
+    JAX package's sharded batch takes them: the value is the global
+    objective (times this process's batch) on every process, and the
+    gradient is that of this process's rows under the global mask. None:
+    one process holds the whole batch."""
     batch = mu.shape[0]
     per_dim = -0.5 * (1.0 + logvar - mu.square() - torch.exp(logvar))
-    mean_per_dim = per_dim.reshape(batch, -1).mean(dim=0)          # [z]
-    return torch.sum(torch.clamp_min(mean_per_dim, free_bits)) * batch
+    sums = per_dim.reshape(batch, -1).sum(dim=0)                   # [z]
+    shared = sums.detach() if reduce is None else reduce(sums.detach())
+    mean = shared / batch
+    masked = (sums * (mean >= free_bits)).sum()
+    value = torch.sum(torch.clamp_min(mean, free_bits)) * batch
+    return masked - masked.detach() + value
 
 
 def elbo_loss(logits: torch.Tensor, targets: torch.Tensor,

@@ -1,14 +1,15 @@
 """Graceful preemption: the first SIGTERM or SIGINT becomes a cooperative
 stop.
 
-Counterpart of the JAX package's train/preemption.py, for one process.
-Batch schedulers preempt with SIGTERM and a grace period before SIGKILL;
-the train loop (train/trainer.py ``train``) finishes the dispatch in
-flight, checkpoints the exact step it reached, and returns normally, so
-the CLI can say how to resume. Resume from any step draws the ids a
-continuous run would (``make_id_schedule``) and keeps the dispatch size
-(``dispatch_sizes``). The stop decision across several processes waits for
-the port's multi-process training (ROADMAP.md item A13).
+Counterpart of the JAX package's train/preemption.py. Batch schedulers
+preempt with SIGTERM and a grace period before SIGKILL; the train loop
+(train/trainer.py ``train``) finishes the dispatch in flight, checkpoints
+the exact step it reached, and returns normally, so the CLI can say how to
+resume. Resume from any step draws the ids a continuous run would
+(``make_id_schedule``) and keeps the dispatch size (``dispatch_sizes``).
+This class is one process's flag; under multi-process training the loop
+decides collectively, once a dispatch, and every process stops when any
+of them was signalled (a scheduler may signal only some).
 """
 
 from __future__ import annotations

@@ -1,12 +1,27 @@
 """The ELBO train step and the host loop around it.
 
-Counterpart of the JAX package's train/trainer.py, for the resident,
-replicated data path: batch → forward (encoder → reparameterize → decoder)
-→ masked-BCE + KL-annealed ELBO → backward → Adam, with the β schedule, the
-noise, the optional transpose augmentation, the optimizer, ``grad_norm``,
-``nonfinite`` and the EMA all inside the step, on the device. The host loop
-only draws window ids, dispatches K steps at a time and does the log and
-eval I/O.
+Counterpart of the JAX package's train/trainer.py: batch → forward
+(encoder → reparameterize → decoder) → masked-BCE + KL-annealed ELBO →
+backward → Adam, with the β schedule, the noise, the optional transpose
+augmentation, the optimizer, ``grad_norm``, ``nonfinite`` and the EMA all
+inside the step, on the device. The host loop draws window ids (or, when
+streaming, stacks host batches), dispatches K steps at a time and does the
+log, eval and checkpoint I/O. Its data paths are the JAX package's three:
+
+- resident (a ``PianoRollDataset``): the bar cache is uploaded once and
+  every batch is gathered on the device by window id, the corpus either
+  replicated on every device or, with ``corpus_layout="sharded"``, dealt
+  piece-wise over the data-parallel processes (train/sharded_corpus.py);
+- streaming (an iterator of host batches, for corpora larger than device
+  memory): a producer thread packs the rolls to 1 bit a cell and uploads
+  the next K batches while the device runs the current ones;
+- per-process streaming (``data.HostLocalBatches``): each process's
+  iterator yields only its own rows of the global batch.
+
+Multi-process data parallelism (parallel/): each process drives one
+device and trains on its rows of every global batch; the gradients and
+the logged metrics are averaged over the group inside the step, so every
+process holds the same state.
 
 What differs from the JAX package, and why:
 
@@ -19,8 +34,15 @@ What differs from the JAX package, and why:
 - Noise comes from the state's ``torch.Generator`` on the device, in a
   fixed order each step: the transpose shifts, then each latent level's
   normals (``vae.draw_eps``: the phrase level, then the bar level, for
-  hier). Every step function also takes ``eps`` (and ``shifts``) from the
-  caller, which is how the tests feed both packages the same numbers.
+  hier), always for the global batch, of which a process keeps its rows:
+  the draws of P processes are those of one. Every step function also
+  takes ``eps`` (and ``shifts``) from the caller, which is how the tests
+  feed both packages the same numbers.
+- The gradients are taken with ``torch.autograd.grad`` and averaged over
+  the process group explicitly, in one flat all-reduce (no
+  DistributedDataParallel: its hooks belong to ``.backward()``), before
+  ``grad_norm``, the clip, Adam and the EMA see them, as the JAX
+  package's psum places them.
 - The optimizer is a small Adam over ``torch._foreach`` ops that follows
   optax's arithmetic (``adam``/``adamw``, ``clip_by_global_norm``, the lr
   schedules, ``mu_dtype``), with its count on the device.
@@ -29,10 +51,9 @@ What differs from the JAX package, and why:
 - ``use_pallas_loss`` takes effect on a CUDA device: the differentiated
   loss then goes through the dual-output BCE kernel (ops/fused_elbo.py).
 
-Checkpoints are checkpoints/io.py's files, and a preemption stop is
-train/preemption.py's single-process ``GracefulStop``. Streaming
-iterators, a device mesh and the sharded corpus layout are later items of
-ROADMAP.md: ``train`` refuses them by name.
+Checkpoints are checkpoints/io.py's files, written by process 0, and a
+preemption stop is train/preemption.py's ``GracefulStop``, decided
+collectively. Tensor parallelism is not ported (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -42,16 +63,25 @@ import copy
 import json
 import math
 import os
+import queue
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from musicvae_tpu_torch.checkpoints import io as ckpt_io
 from musicvae_tpu_torch.config import Config
+from musicvae_tpu_torch.data.dataset import HostLocalBatches
 from musicvae_tpu_torch.midi.tensorize import pitch_mask
-from musicvae_tpu_torch.models.vae import PianoRollVAE, build_model, draw_eps
+from musicvae_tpu_torch.models.vae import (PianoRollVAE, build_model,
+                                           draw_eps, resolve_device)
 from musicvae_tpu_torch.ops import augment, fused_elbo, losses
+from musicvae_tpu_torch.ops.pack import pack_bits_np, unpack_bits
+from musicvae_tpu_torch.parallel import distributed
+from musicvae_tpu_torch.parallel.mesh import (DataMesh, make_mesh,
+                                              shard_batch)
 
 # cuBLAS is reproducible under torch.use_deterministic_algorithms only with
 # a fixed workspace, chosen through this variable, which PyTorch reads at
@@ -61,11 +91,6 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ADAM_EPS = 1e-8               # optax.adam's default; eps_root is 0
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not in the PyTorch port yet "
-                               f"(ROADMAP.md item {item})")
 
 
 # -- learning rate and optimizer ---------------------------------------------
@@ -321,9 +346,16 @@ def create_state(cfg: Config, device="cuda",
 
 # -- the loss and the step -------------------------------------------------------
 
+def _group_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the process group's processes (a copy)."""
+    t = t.clone()
+    dist.all_reduce(t)
+    return t / dist.get_world_size()
+
+
 def elbo_from_outputs(cfg: Config, logits, x, latents, beta,
                       use_pallas: bool = False, free_bits: float = 0.0,
-                      pallas_dual: bool = False):
+                      pallas_dual: bool = False, group: bool = False):
     """recon + beta * (sum of per-level KLs), batch-mean (ops/losses.py).
 
     With ``use_pallas`` the masked-BCE sum goes through ops/fused_elbo.py
@@ -331,7 +363,10 @@ def elbo_from_outputs(cfg: Config, logits, x, latents, beta,
     forward, for differentiated graphs. x goes in as it is, uint8 included.
 
     ``free_bits`` > 0 floors each latent dimension's batch-mean KL in the
-    minimized objective; the reported ``kl`` stays the true KL."""
+    minimized objective; the reported ``kl`` stays the true KL. ``group``:
+    these are one process's rows of a global batch split evenly over the
+    processes of the group, and the floor applies to the global batch's
+    means (``losses.kl_free_bits``'s ``reduce``)."""
     mask = pitch_mask(cfg.midi, logits.device)
     batch = logits.shape[0]
     if use_pallas:
@@ -342,7 +377,8 @@ def elbo_from_outputs(cfg: Config, logits, x, latents, beta,
         recon = losses.masked_bce_sum(logits, x, mask) / batch
     kl = sum(losses.kl_diag_gaussian(mu, lv) for mu, lv in latents) / batch
     if free_bits > 0.0:
-        kl_obj = sum(losses.kl_free_bits(mu, lv, free_bits)
+        reduce = _group_mean if group else None
+        kl_obj = sum(losses.kl_free_bits(mu, lv, free_bits, reduce)
                      for mu, lv in latents) / batch
     else:
         kl_obj = kl
@@ -350,10 +386,40 @@ def elbo_from_outputs(cfg: Config, logits, x, latents, beta,
     return loss, {"loss": loss, "recon": recon, "kl": kl, "beta": beta}
 
 
+_AVERAGED = ("loss", "recon", "kl")     # metrics averaged over the group
+
+
+def _average_over_group(grads: List[torch.Tensor],
+                        metrics: Dict[str, torch.Tensor], world: int):
+    """(grads, metrics) averaged over the process group: one flat f32
+    bucket of every gradient and the ``_AVERAGED`` metrics, one
+    all-reduce (SUM), then ÷ world. Every process gets the same bits."""
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [metrics[k].reshape(1).to(grads[0].dtype)
+                        for k in _AVERAGED])
+    dist.all_reduce(flat)
+    flat /= world
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    metrics = dict(metrics)
+    for j, k in enumerate(_AVERAGED):
+        metrics[k] = flat[i + j].to(metrics[k].dtype)
+    return out, metrics
+
+
 def _train_step_body(cfg: Config, model: PianoRollVAE,
-                     use_pallas: Optional[bool] = None) -> Callable:
+                     use_pallas: Optional[bool] = None,
+                     mesh: Optional[DataMesh] = None) -> Callable:
     """The single-step update every step function shares:
-    (state, batch, eps=None, shifts=None) → (state, metrics)."""
+    (state, batch, eps=None, shifts=None) → (state, metrics).
+
+    ``mesh`` (parallel/mesh.py): ``batch`` holds this process's rows of
+    the global batch; the noise is drawn for the global batch and this
+    process keeps its rows (``eps`` and ``shifts``, when given, are the
+    global batch's too), and with a process group the gradients and the
+    loss, recon and kl are averaged over it."""
     t = cfg.train
     cond = cfg.model.kind == "cond"
     if t.transpose_aug and cond and (cfg.model.cond_chord_classes != 24
@@ -375,6 +441,8 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
     device = next(model.parameters()).device
     if use_pallas is None:
         use_pallas = t.use_pallas_loss and device.type == "cuda"
+    world = 1 if mesh is None else mesh.data
+    reduce = mesh is not None and mesh.group
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    eps=None, shifts: Optional[torch.Tensor] = None):
@@ -382,17 +450,22 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
             raise ValueError("this step was built for another model than "
                              "the state's")
         x = batch["x"]
+        rows = slice(None)
+        if world > 1:
+            rows = mesh.rows(x.shape[0] * world)
         labels = {}
         if cond:
             labels = {"chord": batch["chord"], "key_sig": batch["key_sig"]}
         beta = losses.beta_schedule(state.step, t.beta_max,
                                     t.beta_warmup_steps, t.beta_hold_steps,
                                     t.beta_schedule, t.beta_cycle_steps)
-        # the state's generator gives the shifts first, then the noise
+        # the state's generator gives the shifts first, then the noise,
+        # both for the global batch
         if t.transpose_aug:
             if shifts is None:
-                shifts = augment.random_shifts(state.generator, x.shape[0],
-                                               t.transpose_aug)
+                shifts = augment.random_shifts(
+                    state.generator, x.shape[0] * world, t.transpose_aug)
+            shifts = shifts[rows]
             x = augment.transpose_rolls(x, shifts)
             if cond:
                 # the labels transpose with the content
@@ -401,17 +474,22 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
                           "key_sig": augment.rotate_chord_classes(
                               labels["key_sig"], shifts)}
         if eps is None:
-            eps = draw_eps(cfg.model, x.shape[0], state.generator)
+            eps = draw_eps(cfg.model, x.shape[0] * world, state.generator)
+        if isinstance(eps, torch.Tensor):
+            eps = (eps,)
+        eps = tuple(e[rows] for e in eps)
         logits, latents = model(x, eps, **labels)
         loss, metrics = elbo_from_outputs(cfg, logits, x, latents, beta,
                                           use_pallas, free_bits=t.free_bits,
-                                          pallas_dual=True)
+                                          pallas_dual=True, group=reduce)
         grads = torch.autograd.grad(loss, state.params)
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
+            if reduce:
+                grads, metrics = _average_over_group(grads, metrics, world)
             metrics["grad_norm"] = global_norm(grads)
-            metrics["nonfinite"] = 1.0 - torch.isfinite(loss).to(
-                torch.float32)
+            metrics["nonfinite"] = 1.0 - torch.isfinite(
+                metrics["loss"]).to(torch.float32)
             state.opt.update(grads, metrics["grad_norm"])
             if state.ema_model is not None:
                 ema = state.ema_params
@@ -425,12 +503,50 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
 
 
 def make_train_step(cfg: Config, model: PianoRollVAE,
-                    use_pallas: Optional[bool] = None) -> Callable:
+                    use_pallas: Optional[bool] = None,
+                    mesh: Optional[DataMesh] = None) -> Callable:
     """(state, batch, eps=None, shifts=None) → (state, metrics), with
     batch {"x": [B,N,T,P] uint8 or float} and, for cond, "chord" [B,N]
     and "key_sig" [B]; ``eps`` the noise of each latent level
-    (``vae.eps_shapes``), ``shifts`` [B] the transpose shifts."""
-    return _train_step_body(cfg, model, use_pallas)
+    (``vae.eps_shapes``), ``shifts`` [B] the transpose shifts. Under a
+    ``mesh`` the batch is this process's rows (``_train_step_body``)."""
+    return _train_step_body(cfg, model, use_pallas, mesh)
+
+
+def make_train_step_multi(cfg: Config, model: PianoRollVAE,
+                          use_pallas: Optional[bool] = None,
+                          packed_x: bool = False,
+                          mesh: Optional[DataMesh] = None) -> Callable:
+    """K steps over stacked host batches per call: (state, stacked,
+    eps=None, shifts=None) → (state, last step's metrics as device
+    tensors), every entry of ``stacked`` with a leading [K] axis; ``eps``
+    [K, ...] a latent level, ``shifts`` [K,B]. The body is exactly the
+    single-step update, run eagerly once a row with no host
+    synchronisation in between.
+
+    ``packed_x``: the batch carries the rolls bit-packed under "x_packed"
+    (uint8 [K,B,N,T,P/8], ops/pack.py), and each step unpacks its own
+    slice on the device to the uint8 rolls the resident path gathers: 8x
+    fewer bytes over the host link than uint8 rolls, 32x fewer than f32
+    (the streaming path)."""
+    single = _train_step_body(cfg, model, use_pallas, mesh)
+
+    def multi(state, stacked, eps=None, shifts=None):
+        metrics: Dict[str, torch.Tensor] = {}
+        if isinstance(eps, torch.Tensor):
+            eps = (eps,)
+        k = next(iter(stacked.values())).shape[0]
+        for j in range(k):
+            batch = {kk: v[j] for kk, v in stacked.items()}
+            if packed_x:
+                batch["x"] = unpack_bits(batch.pop("x_packed"), torch.uint8)
+            state, metrics = single(
+                state, batch,
+                None if eps is None else tuple(e[j] for e in eps),
+                None if shifts is None else shifts[j])
+        return state, metrics
+
+    return multi
 
 
 def _make_window_gather(cfg: Config) -> Callable:
@@ -459,13 +575,17 @@ def _make_window_gather(cfg: Config) -> Callable:
 
 
 def make_train_step_indexed(cfg: Config, model: PianoRollVAE,
-                            use_pallas: Optional[bool] = None) -> Callable:
+                            use_pallas: Optional[bool] = None,
+                            mesh: Optional[DataMesh] = None) -> Callable:
     """Train step over a device-resident dataset: (state, data, idx,
     eps=None, shifts=None) → (state, metrics). ``data`` holds the corpus's
     bars (uint8 [T,96,128]) and window ``starts`` (int32) on the device,
     and for cond the window labels ``chords`` and ``keys``; ``idx`` is a
-    [B] int32 window-id vector, the only per-step transfer."""
-    single = _train_step_body(cfg, model, use_pallas)
+    [B] int32 window-id vector, the only per-step transfer. Under a
+    ``mesh``, ``idx`` names this process's rows of the global batch, in
+    its own ``data`` (the whole corpus, or its shard's block under the
+    sharded layout)."""
+    single = _train_step_body(cfg, model, use_pallas, mesh)
     gather = _make_window_gather(cfg)
 
     def step(state, data, idx, eps=None, shifts=None):
@@ -475,7 +595,8 @@ def make_train_step_indexed(cfg: Config, model: PianoRollVAE,
 
 
 def make_train_step_indexed_multi(cfg: Config, model: PianoRollVAE,
-                                  use_pallas: Optional[bool] = None
+                                  use_pallas: Optional[bool] = None,
+                                  mesh: Optional[DataMesh] = None
                                   ) -> Callable:
     """K device-resident indexed steps per call: (state, data, idxs [K,B],
     eps=None, shifts=None [K,B]) → (state, last step's metrics as device
@@ -484,7 +605,7 @@ def make_train_step_indexed_multi(cfg: Config, model: PianoRollVAE,
     exactly the single-step update, run eagerly once per row of ``idxs``
     with no host synchronisation in between: the host enqueues ahead of
     the card."""
-    single = make_train_step_indexed(cfg, model, use_pallas)
+    single = make_train_step_indexed(cfg, model, use_pallas, mesh)
 
     def multi(state, data, idxs, eps=None, shifts=None):
         metrics: Dict[str, torch.Tensor] = {}
@@ -596,10 +717,195 @@ def _write_json_atomic(path: str, obj) -> None:
     os.replace(tmp, path)
 
 
+class _StackUploader:
+    """Host stacks to the device for the streaming producer. On a CUDA
+    device each array is staged in a pinned host buffer, reused (two a
+    key, in turn; a buffer is refilled only after its last copy's event
+    has completed), and copied ``non_blocking`` on a side stream, and the
+    stack comes with an event recorded after its copies, which the
+    compute stream waits on before the stack's first step. On the CPU
+    the arrays become tensors as they are."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self._buffers: Dict[Tuple[str, int], Tuple[torch.Tensor,
+                                                       Any]] = {}
+            self._turn = 0
+
+    def put(self, arrays: Dict[str, np.ndarray]):
+        """(dict of device tensors, the copies' event or None)."""
+        if not self.cuda:
+            return {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in arrays.items()}, None
+        turn, self._turn = self._turn, 1 - self._turn
+        out, pinned = {}, {}
+        with torch.cuda.stream(self.stream):
+            for k, v in arrays.items():
+                src = torch.from_numpy(np.ascontiguousarray(v))
+                buf, done = self._buffers.get((k, turn), (None, None))
+                if done is not None:
+                    done.synchronize()
+                if buf is None or buf.shape != src.shape:
+                    buf = torch.empty(src.shape, dtype=src.dtype,
+                                      pin_memory=True)
+                buf.copy_(src)
+                out[k] = torch.empty(src.shape, dtype=src.dtype,
+                                     device=self.device)
+                out[k].copy_(buf, non_blocking=True)
+                pinned[k] = buf
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        for k, buf in pinned.items():
+            self._buffers[(k, turn)] = (buf, event)
+        return out, event
+
+
+def _stack_host_batches(host: List[Dict[str, np.ndarray]], cond: bool):
+    """K host batches → the stacked arrays a packed streaming step reads:
+    "x_packed" [K,B,N,T,P/8] (binary rolls, else a ValueError: packing
+    would collapse other values) and, for cond, "chord" and "key_sig"."""
+    xv = np.stack([h["x"] for h in host])
+    if not ((xv == 0) | (xv == 1)).all():
+        raise ValueError("streaming batches must carry binary rolls "
+                         "(x ∈ {0,1}); got non-binary values, which "
+                         "bit-packing would corrupt")
+    stacked = {"x_packed": pack_bits_np(xv)}
+    if cond:
+        for k in ("chord", "key_sig"):
+            stacked[k] = np.stack([np.asarray(h[k], np.int32) for h in host])
+    return stacked
+
+
+def _start_producer(data, sizes, cfg: Config, mesh: DataMesh,
+                    num_steps: int, uploader: _StackUploader):
+    """The streaming path's producer thread ("mvae-prefetch"): for each
+    dispatch it stacks K host batches from ``data``, packs them, keeps
+    this process's rows (unless the iterator already yields only those,
+    ``HostLocalBatches``) and uploads them while the device runs the
+    dispatch before. Returns (queue, quit event): the queue holds two
+    stacks at most; before the first stack of a multi-process run comes
+    a ("check_hosts", what, chunks) item for the loop's collective check;
+    any failure is put on the queue for the loop to raise. Setting the
+    quit event ends the thread within 0.2 s of a full queue."""
+    batch_q: "queue.Queue" = queue.Queue(maxsize=2)
+    producer_quit = threading.Event()
+    host_local = isinstance(data, HostLocalBatches)
+    cond = cfg.model.kind == "cond"
+    b = cfg.train.batch_size
+
+    class _Quit(Exception):
+        pass
+
+    def _qput(item):
+        # a bounded wait that notices the loop has gone
+        while not producer_quit.is_set():
+            try:
+                batch_q.put(item, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+        raise _Quit
+
+    def _producer():
+        try:
+            for di, ki in enumerate(sizes):
+                stacked = _stack_host_batches(
+                    [next(data) for _ in range(ki)], cond)
+                local = stacked["x_packed"].shape[1]
+                if di == 0:
+                    if host_local and local * mesh.data != b:
+                        raise ValueError(
+                            "host-local streaming batches must carry "
+                            f"batch_size/process_count = {b}/{mesh.data} "
+                            f"rows each; got {local}")
+                    if mesh.data > 1:
+                        # replicated: every process's stack is the same
+                        # (its content hashed); host-local: only the
+                        # structure must agree
+                        chunks = ([repr(sorted(
+                            (k, v.shape, str(v.dtype))
+                            for k, v in stacked.items())).encode()]
+                            if host_local else
+                            [np.ascontiguousarray(v).tobytes()
+                             for _, v in sorted(stacked.items())])
+                        _qput(("check_hosts",
+                               "streaming first-batch structure"
+                               if host_local else "streaming first batch",
+                               chunks))
+                if not host_local and mesh.data > 1:
+                    stacked = {k: np.ascontiguousarray(
+                        shard_batch(v, mesh, axis=1))
+                        for k, v in stacked.items()}
+                _qput(("stack",) + uploader.put(stacked))
+        except _Quit:
+            return
+        except StopIteration:
+            try:
+                _qput(RuntimeError(
+                    f"streaming data iterator exhausted before "
+                    f"{num_steps} steps; supply an infinite iterator or "
+                    f"fewer num_steps"))
+            except _Quit:
+                return
+        except BaseException as e:          # noqa: BLE001: raised by the loop
+            try:
+                _qput(e)
+            except _Quit:
+                return
+
+    threading.Thread(target=_producer, daemon=True,
+                     name="mvae-prefetch").start()
+    return batch_q, producer_quit
+
+
+def _next_stack(batch_q: "queue.Queue", device: torch.device):
+    """The next streamed stack, ready for the compute stream: a failure of
+    the producer is raised here, a cross-process check item is run (a
+    collective), and on a CUDA device the compute stream waits for the
+    stack's copies and the allocator learns that it reads them."""
+    item = batch_q.get()
+    if isinstance(item, BaseException):
+        raise item
+    if item[0] == "check_hosts":
+        distributed.assert_hosts_identical(item[1], *item[2])
+        return _next_stack(batch_q, device)
+    _, tensors, event = item
+    if event is not None:
+        compute = torch.cuda.current_stream(device)
+        compute.wait_event(event)
+        for t in tensors.values():
+            t.record_stream(compute)
+    return tensors
+
+
+def _collective_stop(requested: bool, mesh: DataMesh) -> bool:
+    """Whether any process of the group was asked to stop: every process
+    stops at the same dispatch and enters the save together."""
+    if mesh.data == 1:
+        return requested
+    dev = distributed.collective_device()
+    flag = torch.tensor([int(requested)], dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
+def _broadcast_float(value: float, mesh: DataMesh) -> float:
+    """Process 0's ``value`` on every process."""
+    if mesh.data == 1:
+        return value
+    t = torch.tensor([value], dtype=torch.float64,
+                     device=distributed.collective_device())
+    dist.broadcast(t, src=0)
+    return float(t.item())
+
+
 def train(cfg: Config,
           data: Any,
           num_steps: Optional[int] = None,
-          mesh=None,
+          mesh: Optional[DataMesh] = None,
           ckpt_manager=None,
           log_fn: Optional[Callable[[int, Dict], None]] = None,
           state: Optional[TrainState] = None,
@@ -607,9 +913,22 @@ def train(cfg: Config,
           best_ckpt_manager=None,
           stop=None,
           device="cuda"):
-    """Host-side loop over a ``PianoRollDataset``: its bars and window
-    starts are uploaded to ``device`` once and every batch is gathered
-    there by index (``make_train_step_indexed_multi``).
+    """Host-side loop. ``data`` is a ``PianoRollDataset`` (its bars and
+    window starts are uploaded to the device once and every batch is
+    gathered there by index, ``make_train_step_indexed_multi``; with
+    ``cfg.train.corpus_layout="sharded"`` each process uploads only its
+    shard's block, train/sharded_corpus.py) or an iterator of host
+    batches (the streaming path for corpora larger than device memory,
+    ``make_train_step_multi(packed_x=True)`` behind a producer thread; a
+    ``data.HostLocalBatches`` iterator yields only this process's rows).
+
+    ``mesh`` (parallel/mesh.py ``make_mesh``, by default from
+    ``cfg.mesh`` on ``device``, or the state's device): under a process
+    group of P processes each trains on its rows of every global batch
+    of ``cfg.train.batch_size`` and the step averages the gradients over
+    the group. At start-up the processes check that they hold the same
+    resident corpus and seed (or, streaming, the same first stack; only
+    its structure under ``HostLocalBatches``).
 
     ``num_steps`` is the TOTAL step count: a ``state`` that is already at
     step S continues from S and stops at num_steps. With ``state`` the
@@ -617,39 +936,38 @@ def train(cfg: Config,
 
     With ``eval_data`` (a held-out PianoRollDataset) and
     cfg.train.eval_every > 0, a deterministic eval sweep over a fixed
-    partition runs every eval_every steps and is logged under ``eval_*``
-    keys (``eval_ema_*`` for the EMA weights when they are kept). With
-    ``best_ckpt_manager`` the state with the lowest ``eval_loss`` so far is
-    saved there, and that loss is kept beside it in ``best_metric.json``,
-    which a resumed run reads, so its first eval cannot replace a better
-    earlier state.
+    partition runs every eval_every steps, the same on every process, and
+    is logged under ``eval_*`` keys (``eval_ema_*`` for the EMA weights
+    when they are kept). With ``best_ckpt_manager`` the state with the
+    lowest ``eval_loss`` so far is saved there, and that loss is kept
+    beside it in ``best_metric.json``, which a resumed run reads (process
+    0 reads it and broadcasts it), so its first eval cannot replace a
+    better earlier state.
 
     ``ckpt_manager`` (checkpoints/io.py) receives the state every
     cfg.train.ckpt_every steps, at the end of a dispatch (``pick_k`` makes
-    dispatches end on those steps). ``stop`` (a preemption.GracefulStop,
-    or anything with a ``requested`` attribute) is read once a dispatch:
-    when set, the loop saves the exact step it reached into
+    dispatches end on those steps); process 0 writes. ``stop`` (a
+    preemption.GracefulStop, or anything with a ``requested`` attribute)
+    is read once a dispatch, collectively (all processes stop when any
+    was asked to): the loop then saves the exact step it reached into
     ``ckpt_manager`` and returns.
 
-    The run is bit-reproducible (``deterministic_algorithms``). ``mesh``,
-    a streaming iterator as ``data`` and ``corpus_layout="sharded"`` are
-    not ported yet and raise.
+    The run is bit-reproducible (``deterministic_algorithms``).
 
     Returns (model, final_state, last_metrics); the metrics are device
     tensors."""
-    if mesh is not None:
-        raise _later("training over a device mesh", "A13")
-    if not hasattr(data, "bars"):
-        raise _later("training from a streaming batch iterator", "A13")
-    if cfg.train.corpus_layout != "replicated":
-        raise _later(f"corpus_layout={cfg.train.corpus_layout!r}", "A13")
-
+    if mesh is None:
+        where = device if state is None else next(
+            state.model.parameters()).device
+        mesh = make_mesh(cfg.mesh, resolve_device(where))
     if state is None:
-        model, state = create_state(cfg, device=device)
+        model, state = create_state(cfg, device=mesh.device)
     else:
         model = state.model
         state.opt.configure(cfg)
     dev = next(model.parameters()).device
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     num_steps = num_steps if num_steps is not None else cfg.train.num_steps
     b = cfg.train.batch_size
     # host mirror of state.step: one read at start-up, none per step
@@ -688,7 +1006,8 @@ def train(cfg: Config,
             return {mk: sum(mv) / len(mv) for mk, mv in acc.items()}
 
         # the best eval loss so far persists beside the best checkpoint;
-        # an unreadable sidecar means a fresh best
+        # an unreadable sidecar means a fresh best. Process 0's is every
+        # process's: they must agree to enter the best save together
         best_eval_loss = float("inf")
         if best_ckpt_manager is not None:
             best_metric_path = os.path.join(best_ckpt_manager.directory,
@@ -698,45 +1017,98 @@ def train(cfg: Config,
                     best_eval_loss = float(json.load(f)["eval_loss"])
             except (OSError, ValueError, KeyError, TypeError):
                 pass
+            best_eval_loss = _broadcast_float(best_eval_loss, mesh)
 
     k = pick_k(cfg, do_eval)
     sizes = dispatch_sizes(start_step, num_steps, k)
-    data_dev = {"bars": _to_device(data.bars, dev),
-                "starts": _to_device(data.starts, dev)}
-    if cfg.model.kind == "cond":
-        data_dev["chords"] = _to_device(data.chords, dev)
-        data_dev["keys"] = _to_device(data.keys, dev)
-    multi_fn = make_train_step_indexed_multi(cfg, model)
-    ids_for_step = make_id_schedule(cfg.train.seed, len(data), b)
+    resident = hasattr(data, "bars")
+    if resident:
+        arrays = {"bars": data.bars, "starts": data.starts}
+        if cfg.train.corpus_layout == "sharded":
+            # each process uploads only its shard's block: 1/P of the
+            # corpus a device
+            from musicvae_tpu_torch.train.sharded_corpus import (
+                build_sharded_arrays, local_block, make_sharded_id_schedule)
+            arrays, counts = build_sharded_arrays(data, mesh.data,
+                                                  cfg.train.seed)
+            arrays = local_block(arrays, mesh.data, mesh.rank)
+            ids_for_step = make_sharded_id_schedule(cfg.train.seed, counts,
+                                                    b)
+        elif cfg.train.corpus_layout == "replicated":
+            if cfg.model.kind == "cond":
+                arrays.update(chords=data.chords, keys=data.keys)
+            ids_for_step = make_id_schedule(cfg.train.seed, len(data), b)
+        else:
+            raise ValueError(f"unknown corpus_layout "
+                             f"{cfg.train.corpus_layout!r}; expected "
+                             "'replicated' or 'sharded'")
+        if cfg.model.kind != "cond":
+            arrays = {kk: arrays[kk] for kk in ("bars", "starts")}
+        rows = mesh.rows(b)
+        # every process must hold the same corpus and seed: it draws the
+        # same ids and trains on its rows of them
+        distributed.assert_hosts_identical(
+            "resident corpus", np.ascontiguousarray(data.bars),
+            np.ascontiguousarray(data.starts),
+            np.ascontiguousarray(data.chords),
+            np.ascontiguousarray(data.keys),
+            np.int64(cfg.train.seed).tobytes())
+        data_dev = {kk: _to_device(v, dev) for kk, v in arrays.items()}
+        multi_fn = make_train_step_indexed_multi(cfg, model, mesh=mesh)
+    else:
+        multi_fn = make_train_step_multi(cfg, model, packed_x=True,
+                                         mesh=mesh)
+        batch_q, producer_quit = _start_producer(
+            data, sizes, cfg, mesh, num_steps, _StackUploader(dev))
 
     metrics: Dict[str, torch.Tensor] = {}
     step = start_step
-    with deterministic_algorithms():
-        for ki in sizes:
-            idxs = np.stack([ids_for_step(step + j) for j in range(ki)])
-            state, metrics = multi_fn(state, data_dev, _to_device(idxs, dev))
-            step += ki
-            if (log_fn is not None and cfg.train.log_every > 0
-                    and step % cfg.train.log_every == 0):
-                log_fn(step, {mk: float(mv) for mk, mv in metrics.items()})
-            if do_eval and step % eval_every == 0:
-                eval_metrics = run_eval()
-                if log_fn is not None:
-                    log_fn(step, eval_metrics)
-                if (best_ckpt_manager is not None
-                        and eval_metrics["eval_loss"] < best_eval_loss):
-                    best_eval_loss = eval_metrics["eval_loss"]
-                    ckpt_io.save(best_ckpt_manager, state, cfg)
-                    os.makedirs(best_ckpt_manager.directory, exist_ok=True)
-                    _write_json_atomic(best_metric_path,
-                                       {"eval_loss": best_eval_loss,
-                                        "step": step})
-            saved = (ckpt_manager is not None and cfg.train.ckpt_every > 0
-                     and step % cfg.train.ckpt_every == 0)
-            if saved:
-                ckpt_io.save(ckpt_manager, state, cfg)
-            if stop is not None and stop.requested:
-                if ckpt_manager is not None and not saved:
+    try:
+        with deterministic_algorithms():
+            for ki in sizes:
+                if resident:
+                    idxs = np.stack([ids_for_step(step + j)[rows]
+                                     for j in range(ki)])
+                    state, metrics = multi_fn(state, data_dev,
+                                              _to_device(idxs, dev))
+                else:
+                    state, metrics = multi_fn(state,
+                                              _next_stack(batch_q, dev))
+                step += ki
+                if (log_fn is not None and cfg.train.log_every > 0
+                        and step % cfg.train.log_every == 0):
+                    log_fn(step, {mk: float(mv)
+                                  for mk, mv in metrics.items()})
+                if do_eval and step % eval_every == 0:
+                    eval_metrics = run_eval()
+                    if log_fn is not None:
+                        log_fn(step, eval_metrics)
+                    # process 0's loss decides on every process: they
+                    # enter the best save (and its barrier) together
+                    eval_loss = _broadcast_float(eval_metrics["eval_loss"],
+                                                 mesh)
+                    if (best_ckpt_manager is not None
+                            and eval_loss < best_eval_loss):
+                        best_eval_loss = eval_loss
+                        ckpt_io.save(best_ckpt_manager, state, cfg)
+                        if mesh.rank == 0:
+                            os.makedirs(best_ckpt_manager.directory,
+                                        exist_ok=True)
+                            _write_json_atomic(best_metric_path,
+                                               {"eval_loss": best_eval_loss,
+                                                "step": step})
+                saved = (ckpt_manager is not None
+                         and cfg.train.ckpt_every > 0
+                         and step % cfg.train.ckpt_every == 0)
+                if saved:
                     ckpt_io.save(ckpt_manager, state, cfg)
-                break
+                if stop is not None and _collective_stop(
+                        bool(stop.requested), mesh):
+                    if ckpt_manager is not None and not saved:
+                        ckpt_io.save(ckpt_manager, state, cfg)
+                    break
+    finally:
+        if not resident:
+            # a producer blocked on a full queue sees this within 0.2 s
+            producer_quit.set()
     return model, state, metrics

@@ -31,7 +31,9 @@ _NEW_MODULES = ("train.trainer", "data.dataset", "utils.logging",
                 "ops.augment", "ops.fused_elbo", "ops.conv1",
                 "checkpoints.io", "train.preemption", "native",
                 "midi.labels", "data.synthetic", "ops.pack",
-                "utils.genmetrics", "client", "checkpoints.safetensors_io")
+                "utils.genmetrics", "client", "checkpoints.safetensors_io",
+                "parallel.distributed", "parallel.mesh",
+                "train.sharded_corpus")
 
 # every module of the port imported with the compiler and the loader
 # disabled (after torch, which loads its own libraries): an import that

@@ -2,8 +2,9 @@
 and ``train`` subcommand, on the CPU at tiny f32 widths: a K-step dispatch
 equals K single steps and a run resumed through ``state_dict()`` equals an
 uninterrupted one, bit for bit; eval and EMA keys appear at their cadence;
-every argument the port does not implement yet is refused by name; the
-bar cache is the JAX package's on disk.
+the streaming and sharded-corpus paths and their flags run, and tensor
+parallelism, the one thing the port does not implement, is refused by
+name; the bar cache is the JAX package's on disk.
 """
 
 import dataclasses
@@ -16,12 +17,14 @@ import torch
 
 from musicvae_tpu.data.dataset import PianoRollDataset as JaxDataset
 from musicvae_tpu_torch.cli import main
-from musicvae_tpu_torch.config import MidiSpec
+from musicvae_tpu_torch.config import MeshSpec, MidiSpec
 from musicvae_tpu_torch.data.dataset import PianoRollDataset
 from musicvae_tpu_torch.data.synthetic import synth_corpus
+from musicvae_tpu_torch.parallel import make_mesh
 from musicvae_tpu_torch.train import trainer
 from musicvae_tpu_torch.utils.logging import MetricsLogger
-from torch_port_helpers import tiny_pair
+from torch_port_helpers import (one_torch_thread,  # noqa: F401
+                                same_state, tiny_pair)
 
 TRAIN_KW = dict(batch_size=2, log_every=2, ckpt_every=0, eval_every=0,
                 beta_warmup_steps=4, seed=3)
@@ -170,13 +173,16 @@ def test_train_eval_is_the_same_sweep_every_time():
     assert len(evals) == 2 and evals[0] == evals[1]
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "A13"),
+@pytest.mark.parametrize("mesh,item", [
+    (MeshSpec(data=2, model=2), "A16"),
 ])
-def test_train_refuses_unported_arguments(kwargs, item):
+def test_train_refuses_unported_arguments(mesh, item):
+    """Tensor parallelism is the one argument the port does not take: a
+    config whose mesh has a model axis, from which the data layout is
+    built when ``train`` is given none, is refused by name."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        trainer.train(_cfg(), _dataset(), num_steps=1, device="cpu",
-                      **kwargs)
+        trainer.train(_cfg().replace(mesh=mesh), _dataset(), num_steps=1,
+                      device="cpu")
 
 
 def test_train_returns_at_a_stop_request():
@@ -191,12 +197,37 @@ def test_train_returns_at_a_stop_request():
 
 
 def test_train_refuses_streaming_and_sharded_corpus():
+    """What the streaming and sharded-corpus paths refuse: an iterator
+    that runs dry before the run's steps (the JAX package's message), and
+    a sharded corpus over processes that do not divide the batch."""
+    from musicvae_tpu_torch.parallel import DataMesh
+
     ds = _dataset()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A13"):
-        trainer.train(_cfg(), ds.iterator(2), num_steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A13"):
-        trainer.train(_cfg(corpus_layout="sharded"), ds, num_steps=1,
+    with pytest.raises(RuntimeError, match="exhausted before 4 steps"):
+        trainer.train(_cfg(), iter([ds.batch(np.arange(2))]), num_steps=4,
                       device="cpu")
+    with pytest.raises(ValueError, match="not divisible by 3 corpus shards"):
+        trainer.train(_cfg(corpus_layout="sharded"), ds, num_steps=2,
+                      device="cpu",
+                      mesh=DataMesh(3, 0, torch.device("cpu")))
+
+
+def test_train_streams_and_shards_the_corpus():
+    """An iterator of host batches trains (f32 rolls cross packed) the
+    same steps as the resident path on the same batches, and the sharded
+    layout (one shard on one process) trains on the data layout
+    ``train`` is handed."""
+    ds = _dataset()
+    cfg = _cfg()
+    ids = trainer.make_id_schedule(cfg.train.seed, len(ds), 2)
+    batches = (ds.batch(ids(j)) for j in range(4))
+    _, streamed, _ = trainer.train(cfg, batches, num_steps=4, device="cpu")
+    _, resident, _ = trainer.train(cfg, ds, num_steps=4, device="cpu")
+    assert int(streamed.step) == 4 and same_state(streamed, resident)
+    _, state, metrics = trainer.train(
+        _cfg(corpus_layout="sharded"), ds, num_steps=2, device="cpu",
+        mesh=make_mesh(MeshSpec(), "cpu"))
+    assert int(state.step) == 2 and np.isfinite(float(metrics["loss"]))
 
 
 def test_train_defaults_to_the_card_and_says_so_without_one():
@@ -267,8 +298,10 @@ def test_dataset_refuses_what_waits_for_later_items(tmp_path):
     assert len(midi_ds) == 4 and midi_ds.grid == (24, 4)
     with pytest.raises(ValueError, match="no windows"):
         PianoRollDataset.from_corpus([], MidiSpec(), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A13"):
-        ds.host_shard(0, 2)
+    shards = [ds.host_shard(p, 2) for p in range(2)]
+    assert sum(len(s) for s in shards) == len(ds)
+    with pytest.raises(ValueError, match="not in"):
+        ds.host_shard(2, 2)
     with pytest.raises(ValueError, match="holdout_frac"):
         ds.split(1.5)
     np.savez(str(tmp_path / "old.npz"), windows=np.zeros(3))
@@ -313,14 +346,53 @@ def test_train_subcommand_runs_from_a_saved_cache(tmp_path, capsys):
                       .read_text())["step"] == 4
 
 
-@pytest.mark.parametrize("flags,needle", [
-    (["--stream"], "--stream (ROADMAP.md item A13)"),
-    (["--host-sharded"], "--host-sharded (ROADMAP.md item A13)"),
-    (["--corpus-layout", "sharded"], "--corpus-layout sharded"),
+@pytest.mark.parametrize("flags", [
+    ["--stream"],
+    ["--host-sharded", "--eval-every", "0"],
+    ["--corpus-layout", "sharded"],
 ])
-def test_train_subcommand_refuses_unported_flags(flags, needle, capsys):
-    rc = main(["train", "--data", "nowhere.npz", "--device", "cpu", *flags])
-    assert rc == 2
+def test_train_subcommand_runs_the_data_parallel_flags(flags, tmp_path,
+                                                       capsys):
+    """Each data path of the JAX package's ``train`` through the port's
+    command line, on the CPU at narrow widths, from the JAX package's
+    cache file: two steps, a finite loss."""
+    cache = str(tmp_path / "cache.npz")
+    _dataset(5, cls=JaxDataset).save_npy(cache)
+    rc = main(["train", "--data", cache, "--steps", "2", "--batch-size",
+               "2", "--log-every", "2", "--enc-channels", "4,8,8,8,8",
+               "--dec-channels", "8,8,8,8,8", "--device", "cpu",
+               "--log-dir", str(tmp_path / "logs"),
+               "--ckpt-dir", str(tmp_path / "ckpt"), *flags])
+    assert rc == 0
+    out = capsys.readouterr()
+    assert "final metrics" in out.out
+    lines = [json.loads(ln) for ln in
+             (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
+    assert [ln["step"] for ln in lines] == [2]
+    assert np.isfinite(lines[0]["loss"])
+    if "--host-sharded" in flags:
+        assert "host shard 0/1" in out.err
+
+
+@pytest.mark.parametrize("world,flags,needle", [
+    (1, ["--eval-every", "5"], "Set --eval-every 0"),
+    (3, ["--eval-every", "0"], "batch_size 2 not divisible by 3 processes"),
+])
+def test_train_subcommand_refuses_unported_flags(world, flags, needle,
+                                                 tmp_path, capsys,
+                                                 monkeypatch):
+    """What ``--host-sharded`` cannot do is refused with the JAX package's
+    messages: an eval cadence, and a batch that the processes do not
+    divide (three processes, as the launch would report them)."""
+    from musicvae_tpu_torch.parallel import distributed
+
+    cache = str(tmp_path / "cache.npz")
+    _dataset(5).save_npy(cache)
+    monkeypatch.setattr(distributed, "world_size", lambda: world)
+    assert main(["train", "--data", cache, "--host-sharded", "--device",
+                 "cpu", "--batch-size", "2", "--log-dir",
+                 str(tmp_path / "logs"), "--ckpt-dir", str(tmp_path / "ck"),
+                 *flags]) == 2
     assert needle in capsys.readouterr().err
 
 

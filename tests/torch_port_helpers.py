@@ -273,3 +273,44 @@ def check_forward(name, dtype="float32", bf16_ulps=4, **model_kw):
     for i, ((mu, lv), (mu_j, lv_j)) in enumerate(zip(lat, lat_j)):
         close(mu, mu_j, 3e-5, bf16, f"mu level {i}", bf16_ulps)
         close(lv, lv_j, 3e-5, bf16, f"logvar level {i}", bf16_ulps)
+
+
+class InjectedEps:
+    """A flax model whose latent noise is handed in: ``apply`` looks the
+    step's "latent" PRNG key up in ``keys`` ([K, 2] key data, from
+    ``latent_keys``) and runs the model with the matching row of ``eps``
+    ([K, B, z]). The JAX package's multi-step functions draw eps from a
+    threefry key inside a scan; this lets them take the port's noise."""
+
+    def __init__(self, jmodel, keys, eps):
+        self.jmodel = jmodel
+        self.keys = jnp.asarray(keys)
+        self.eps = jnp.asarray(eps)
+
+    def apply(self, variables, x, rngs=None, **kw):
+        kd = jax.random.key_data(rngs["latent"])
+        hit = jnp.all(self.keys == kd[None], axis=-1).astype(jnp.float32)
+        e = jnp.einsum("k,kbz->bz", hit, self.eps)
+        return self.jmodel.apply(variables, x, eps=(e,), **kw)
+
+
+def latent_keys(rng, k: int) -> np.ndarray:
+    """The "latent" keys of k JAX train steps from a state's ``rng`` (the
+    JAX step splits (step_rng, next_rng) off the state's key, no transpose
+    augmentation), as [k, 2] key data."""
+    out = []
+    for _ in range(k):
+        step_rng, rng = jax.random.split(rng)
+        out.append(np.asarray(jax.random.key_data(step_rng)))
+    return np.stack(out)
+
+
+def jax_train_state(jc, params, seed: int = 0):
+    """A JAX TrainState at step 0 around ``params``: optax's initial
+    moments and the key ``jax.random.key(seed)``."""
+    from musicvae_tpu.train import trainer as jtrainer
+
+    params = jax.tree.map(jnp.asarray, params)
+    return jtrainer.TrainState(
+        params=params, opt_state=jtrainer.make_optimizer(jc).init(params),
+        step=jnp.zeros((), jnp.int32), rng=jax.random.key(seed))
