@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--only PHASES] [--log-file PATH]
 
+(``--dp-worker`` and ``--tp-worker`` are the processes the parallel and
+tp phases start.)
+
 Phases, each of which fails the run (non-zero exit, no result line) when a
 check does not hold:
 
@@ -111,7 +114,22 @@ check does not hold:
    (e) c2_trf and c3_trf on init weights serve the same bits serial and
    --coalesce 4, and a lone request the bits it gets padded, with the
    req/s of the slot-at-a-time ops against all slots at once, in turns;
-   K4 at the per-process shape against its plain version, timed.
+   K4 at the per-process shape against its plain version, timed;
+14. tp: tensor parallelism (``parallel.tp.shard_params``) at full width
+   (c2_gru_4bar, 64 x 4, the seeded bar cache resident), 20 steps (10 for
+   bf16, data=2 and the control) of ``make_train_step_indexed_multi`` a
+   run on gloo processes sharing the card, one launch of four
+   (``--tp-worker``; two of them go on as a group of two): (a) data=1 x
+   model=2 in f32 and bf16 against one process at the same global batch
+   and seed, (b) 4 processes, data=2 x model=2, f32, (c) (a) in f32 with
+   the first-conv kernels on 8-channel shards; f32 held to the
+   data-parallel bound, which a control without the column-parallel
+   backward's dx all-reduce must miss (bf16 printed); K4 once a step on
+   every process; each rank's parameter and Adam bytes; steps/s at model=2,
+   at data=2 and on one process, and the collectives a step; (c)'s
+   state saved unsharded, restored into one process and served (K1 every
+   bar); K1/K1b at C = 8 and K4 at a TP process's shape against their
+   plain versions, timed.
 
 The last lines are a "details:" JSON line with every check and timing,
 the card's name and power limit, the kernels JSON object, and
@@ -2835,24 +2853,41 @@ def _kinds_kernel_shapes(seed: int, dev: torch.device, card: str) -> dict:
     library call. K4's sum must give the same bits on a second call at
     25.2 M logits (its fixed-order finish over SUM_MAX_BLOCKS partials).
     Returns {kernel: [shape rows]}."""
-    import torch.nn.functional as F
-
-    from musicvae_tpu_torch.ops import conv1
-
     g = torch.Generator(dev).manual_seed(seed + 90)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    c = 16
-    w = torch.randn((3, 3, c), generator=g, device=dev) / 3.0
-    b = 0.1 * torch.randn(c, generator=g, device=dev)
     rows = {"first_conv_s2": [], "first_conv_s2_bwd": [],
             "masked_bce_sum": [], "masked_bce_sum_dual": []}
 
     def row(*args, **extra):
         _shape_row(rows, "kinds", card, *args, **extra)
 
-    for label, m, out_dtype in (("C3 train, M=2048", 2048, torch.bfloat16),
-                                ("C4 train, M=1024", 1024, torch.bfloat16),
-                                ("C1 train, M=16, f32", 16, torch.float32)):
+    _conv1_shape_rows(g, dev, flush, row, 16, (
+        ("C3 train, M=2048", 2048, torch.bfloat16),
+        ("C4 train, M=1024", 1024, torch.bfloat16),
+        ("C1 train, M=16, f32", 16, torch.float32)))
+    _bce_shape_rows(g, dev, flush, row, (
+        ("C3 train, [128,16,96,128]", (128, 16, 96, 128),
+         ("masked_bce_sum_dual",)),
+        ("C4 train, [256,4,96,128]", (256, 4, 96, 128),
+         ("masked_bce_sum_dual",)),
+        ("C3 eval, [128,16,96,128]", (128, 16, 96, 128),
+         ("masked_bce_sum",))))
+    return rows
+
+
+def _conv1_shape_rows(g, dev, flush, row, c: int, cases) -> None:
+    """K1 and K1b at each case's (label, M, out dtype) with C channels
+    drawn from ``g``, against their plain versions on the same inputs
+    (1e-5 f32 / 1e-2 bf16 on K1, 1e-3 on K1b), then timed from a cold L2
+    through ``row`` beside their bounds, plain versions and library
+    calls."""
+    import torch.nn.functional as F
+
+    from musicvae_tpu_torch.ops import conv1
+
+    w = torch.randn((3, 3, c), generator=g, device=dev) / 3.0
+    b = 0.1 * torch.randn(c, generator=g, device=dev)
+    for label, m, out_dtype in cases:
         x = (torch.rand((m, 96, 128), generator=g, device=dev) < 0.05
              ).to(torch.uint8)
         got = conv1.first_conv_s2(x, w, b, True, out_dtype).float()
@@ -2904,15 +2939,6 @@ def _kinds_kernel_shapes(seed: int, dev: torch.device, card: str) -> dict:
             time_ms(k1b_library, flush),
             x.numel() + osize * dy.numel() + 4 * 2 * (w.numel() + b.numel()),
             dy.numel() * (2 * 9 + 2 * 9 + 12))
-
-    _bce_shape_rows(g, dev, flush, row, (
-        ("C3 train, [128,16,96,128]", (128, 16, 96, 128),
-         ("masked_bce_sum_dual",)),
-        ("C4 train, [256,4,96,128]", (256, 4, 96, 128),
-         ("masked_bce_sum_dual",)),
-        ("C3 eval, [128,16,96,128]", (128, 16, 96, 128),
-         ("masked_bce_sum",))))
-    return rows
 
 
 def _shape_row(rows, phase, card, kernel, label, err, ms, plain, lib,
@@ -3975,6 +4001,439 @@ def parallel_phase(seed: int, dev: torch.device, card: str):
     return runs, out
 
 
+TP_K = 5                 # steps a dispatch, the first dispatch a warm-up
+TP_MODEL = 2             # the model axis of every run: 2 processes a group
+TP_WAIT_S = 600          # bound on the gloo workers
+# (key, processes, dtype, first-conv kernels, model axis, steps, control)
+# of each run on gloo processes sharing the card. One launch of 4 runs the
+# 4-process runs, then processes 0 and 1 join a group of 2 for the rest,
+# so that the start-up and the warm-up are paid once. Model 1 is plain
+# data parallelism at the same world, for steps/s; the control drops the
+# column-parallel backward's dx all-reduce. The runs that are printed
+# (bf16), timed (data=2) or must miss (the control) take 10 steps.
+TP_RUNS = (("tp_dp_f32", 4, "float32", False, TP_MODEL, 20, False),
+           ("tp_f32", 2, "float32", False, TP_MODEL, 20, False),
+           ("tp_bf16", 2, "bfloat16", False, TP_MODEL, 10, False),
+           ("tp_conv1_f32", 2, "float32", True, TP_MODEL, 20, False),
+           ("control_f32", 2, "float32", False, TP_MODEL, 10, True),
+           ("dp_f32", 2, "float32", False, 1, 10, False))
+TP_WORLDS = (4, 2)
+TP_SAVED = "tp_conv1_f32"    # the run whose state is saved and served
+
+
+def _tp_config(seed: int, dtype: str, conv1: bool, steps: int):
+    """Full-width c2_gru_4bar (batch 64) in ``dtype``, the first-conv
+    kernels on when ``conv1``, ``steps`` steps from ``seed``, EMA kept
+    (its copies are sharded too)."""
+    from musicvae_tpu_torch.config import get_config
+
+    base = get_config("c2_gru_4bar")
+    return base.replace(
+        model=dataclasses.replace(base.model, dtype=dtype,
+                                  use_pallas_conv1=conv1),
+        train=dataclasses.replace(base.train, num_steps=steps, seed=seed,
+                                  ema_decay=0.999))
+
+
+@contextlib.contextmanager
+def _without_dx_all_reduce():
+    """The column-parallel backward with its input gradient left unreduced
+    on each rank (``parallel.tp._ReduceGrad``'s backward swapped for the
+    identity): the control run the f32 bound must catch."""
+    from musicvae_tpu_torch.parallel import tp as tp_lib
+
+    saved = tp_lib._ReduceGrad.backward
+    tp_lib._ReduceGrad.backward = staticmethod(lambda ctx, g: (g, None))
+    try:
+        yield
+    finally:
+        tp_lib._ReduceGrad.backward = saved
+
+
+def _count_collectives():
+    """Wrap torch.distributed's all_gather and all_reduce with counters of
+    calls and bytes; returns (counts dict, restore function)."""
+    import torch.distributed as dist
+
+    counts = {"all_gather": 0, "all_reduce": 0, "bytes": 0}
+    saved = dist.all_gather, dist.all_reduce
+
+    def gather(parts, t, *a, **kw):
+        counts["all_gather"] += 1
+        counts["bytes"] += t.numel() * t.element_size() * len(parts)
+        return saved[0](parts, t, *a, **kw)
+
+    def reduce(t, *a, **kw):
+        counts["all_reduce"] += 1
+        counts["bytes"] += t.numel() * t.element_size()
+        return saved[1](t, *a, **kw)
+
+    dist.all_gather, dist.all_reduce = gather, reduce
+
+    def restore():
+        dist.all_gather, dist.all_reduce = saved
+
+    return counts, restore
+
+
+def _tp_train(cfg, ds, dev, mesh=None, ckpt_dir=None) -> dict:
+    """The config's steps of ``make_train_step_indexed_multi`` on the resident
+    cache, in dispatches of TP_K, on one process (``mesh`` None) or on
+    this process's rows under ``mesh``, sharded by ``shard_params`` when
+    it has a model axis. Returns the loss, the checksum of the unsharded
+    parameters, steps/s by host clock after the first dispatch (and the
+    seconds of the set-up and of each dispatch), the launches, this
+    process's state bytes and, for a group, the collectives and bytes of
+    one steady dispatch a step."""
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.parallel import tp as tp_lib
+    from musicvae_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    _, state = trainer.create_state(cfg, device=dev)
+    if mesh is not None:
+        tp_lib.shard_params(state, mesh)
+    b, steps = cfg.train.batch_size, cfg.train.num_steps
+    rows = slice(None) if mesh is None else mesh.rows(b)
+    ids = trainer.make_id_schedule(cfg.train.seed, len(ds), b)
+    data = {"bars": torch.from_numpy(ds.bars).to(dev),
+            "starts": torch.from_numpy(ds.starts).to(dev)}
+    multi = trainer.make_train_step_indexed_multi(cfg, state.model,
+                                                  mesh=mesh)
+    collectives = None
+    _kernels.reset_launches()
+    stamps = [time.perf_counter()]
+    with trainer.deterministic_algorithms():
+        for step in range(0, steps, TP_K):
+            idxs = torch.from_numpy(np.stack(
+                [ids(step + j)[rows] for j in range(TP_K)])).to(dev)
+            count = mesh is not None and mesh.processes > 1 and step == TP_K
+            if count:
+                counts, restore = _count_collectives()
+            try:
+                _, metrics = multi(state, data, idxs)
+                loss = float(metrics["loss"])
+            finally:
+                if count:
+                    restore()
+                    collectives = {k: v / TP_K for k, v in counts.items()}
+            stamps.append(time.perf_counter())
+    launches = dict(_kernels.LAUNCHES)
+    sd = state.state_dict()            # unsharded: gathered when sharded
+    out = {"loss": loss, "step": int(state.step),
+           "param_sum": float(sum(p.double().abs().sum().item()
+                                  for p in sd["params"].values())),
+           "ema_sum": float(sum(p.double().abs().sum().item()
+                                for p in sd["ema"].values())),
+           "steps_per_s": TP_K * (len(stamps) - 2) / (stamps[-1]
+                                                      - stamps[1]),
+           "setup_s": stamps[0] - t0,
+           "dispatch_s": np.diff(stamps).tolist(),
+           "launches": launches, "bytes": tp_lib.state_bytes(state),
+           "collectives_per_step": collectives,
+           "first_conv_channels":
+               state.model.enc_feat.convs[0].weight.shape[0],
+           "sharded": state.tp is not None}
+    if ckpt_dir is not None:
+        manager = ckpt_io.make_manager(ckpt_dir)
+        ckpt_io.save(manager, state, cfg, wait=True)
+    return out
+
+
+def tp_worker(argv) -> int:
+    """One of the gloo processes of the tp phase (run as ``chip_smoke.py
+    --tp-worker RANK HOST:PORT HOST:PORT DIR``). For each world of
+    TP_WORLDS that holds its rank it joins a group of that world at the
+    next address, over gloo (the processes share the one card, where NCCL
+    refuses two ranks), runs that world's TP_RUNS on the cache
+    <DIR>/c2.npz and leaves the group; the ``TP_SAVED`` run saves its
+    state into <DIR>/ck_tp. One JSON line: the runs and the wall-clock
+    stamps of entry and of each join."""
+    from musicvae_tpu_torch.config import MeshSpec
+    from musicvae_tpu_torch.data.dataset import PianoRollDataset
+    from musicvae_tpu_torch.parallel import distributed, make_mesh
+
+    stamps = {"entered": time.time()}
+    rank, coords, work = int(argv[0]), argv[1:3], argv[3]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    seed = int(os.environ.get("MVAE_TP_SEED", "0"))
+    ds = PianoRollDataset.load_npy(os.path.join(work, "c2.npz"))
+    out = {}
+    for world, coord in zip(TP_WORLDS, coords):
+        if rank >= world:
+            break
+        check(distributed.initialize_from_env(coord, world, rank, device=dev,
+                                              backend="gloo"), "no group")
+        stamps[f"joined_{world}"] = time.time()
+        for key, procs, dtype, conv1, model, steps, control in TP_RUNS:
+            if procs != world:
+                continue
+            t0 = time.perf_counter()
+            mesh = make_mesh(MeshSpec(model=model), dev)
+            with (_without_dx_all_reduce() if control
+                  else contextlib.nullcontext()):
+                out[key] = _tp_train(
+                    _tp_config(seed, dtype, conv1, steps), ds, dev, mesh,
+                    os.path.join(work, "ck_tp") if key == TP_SAVED else None)
+            out[key]["mesh"] = [mesh.data, mesh.model]
+            out[key]["seconds"] = time.perf_counter() - t0
+        torch.distributed.destroy_process_group()
+    print(json.dumps({"rank": rank, "runs": out, "stamps": stamps}),
+          flush=True)
+    return 0
+
+
+def _tp_launch(root: str, seed: int):
+    """max(TP_WORLDS) tp workers sharing the card: (each one's JSON line
+    by rank, the launch's wall-clock time)."""
+    coords = []
+    while len(coords) < len(TP_WORLDS):
+        c = f"127.0.0.1:{_free_port()}"
+        if c not in coords:
+            coords.append(c)
+    env = {"GLOO_SOCKET_IFNAME": "lo", "MVAE_TP_SEED": str(seed),
+           **{k: v for k, v in os.environ.items()
+              if not k.startswith("MVAE_")}}
+    t_launch = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+         *coords, root], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, env=env) for r in range(max(TP_WORLDS))]
+    results = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=TP_WAIT_S)
+            check(p.returncode == 0, f"tp worker: {e.decode()[-3000:]}")
+            lines = [ln for ln in o.decode().splitlines()
+                     if ln.startswith("{")]
+            check(bool(lines), f"tp worker printed nothing: {o[-2000:]}")
+            results.append(json.loads(lines[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return results, t_launch
+
+
+def _column_hook_cost(seed: int, ds, dev: torch.device, steps: int = 10):
+    """What the column-parallel hooks of models/layers.py cost a model
+    that is not sharded: the calls of ``column_in``, ``column_out`` and
+    ``shard_of`` a step of one process (counted over ``steps`` f32 steps
+    of ``_tp_train``), the host time of one call on a replicated layer
+    (100,000 calls, less an empty call's time), and their product a step
+    beside that run's host time a step."""
+    import timeit
+
+    from musicvae_tpu_torch.models import layers
+
+    names = ("column_in", "column_out", "shard_of")
+    saved = {n: getattr(layers, n) for n in names}
+    counts = dict.fromkeys(names, 0)
+
+    def counting(n):
+        def call(*args):
+            counts[n] += 1
+            return saved[n](*args)
+        return call
+
+    for n in names:
+        setattr(layers, n, counting(n))
+    try:
+        run = _tp_train(_tp_config(seed, "float32", False, steps), ds, dev)
+    finally:
+        for n in names:
+            setattr(layers, n, saved[n])
+    dense, x = layers.Dense(4, 4), torch.zeros(4, device=dev)
+    reps = 100_000
+    empty = timeit.timeit(lambda: x, number=reps) / reps
+    args = {"column_in": (x, dense), "column_out": (x, -1, dense),
+            "shard_of": (dense,)}
+    call_ns = {n: 1e9 * (timeit.timeit(lambda: saved[n](*args[n]),
+                                       number=reps) / reps - empty)
+               for n in names}
+    per_step = {n: counts[n] / steps for n in names}
+    hooks_us = sum(per_step[n] * call_ns[n] for n in names) / 1e3
+    host_us = 1e6 / run["steps_per_s"]
+    return {"calls_per_step": per_step, "call_ns": call_ns,
+            "hooks_us_per_step": hooks_us, "host_us_per_step": host_us,
+            "share": hooks_us / host_us}
+
+
+def _tp_kernel_shapes(seed: int, dev: torch.device, card: str) -> dict:
+    """K1 and K1b at a TP rank's first-conv shard (M = 256 bars, C = 16 /
+    TP_MODEL channels, f32 as the run) and K4 at a TP process's logits
+    ([64,4,96,128], f32), each against its plain version, timed beside
+    its bound, its plain version and one library call."""
+    g = torch.Generator(dev).manual_seed(seed + 95)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {"first_conv_s2": [], "first_conv_s2_bwd": [],
+            "masked_bce_sum_dual": []}
+
+    def row(*args, **extra):
+        _shape_row(rows, "tp", card, *args, **extra)
+
+    c = 16 // TP_MODEL
+    _conv1_shape_rows(g, dev, flush, row, c, (
+        (f"TP rank, M=256, C={c}, f32", 256, torch.float32),))
+    _bce_shape_rows(g, dev, flush, row, (
+        ("a TP process, [64,4,96,128]", (64, 4, 96, 128),
+         ("masked_bce_sum_dual",)),))
+    return rows
+
+
+def tp_phase(seed: int, dev: torch.device, card: str):
+    """A16 on the card: full-width c2_gru_4bar (batch 64 x 4, the seeded
+    bar cache resident), 20 steps (10 for the runs that are printed, only
+    timed, or the control) of ``make_train_step_indexed_multi`` a run,
+    sharded by ``shard_params`` over gloo processes sharing the card, all
+    from one launch (TP_RUNS): (a) data=1 x model=2 in f32 and
+    bf16 against one process at the same global batch and seed; (b) 4
+    processes, data=2 x model=2, f32; (c) (a) in f32 with the first-conv
+    kernels, K1/K1b at C = 8 a rank, held against their plain versions at
+    that width. f32 is held to the data-parallel bound (loss 1e-5 relative,
+    parameter checksum 1e-6), which the control (the dx all-reduce
+    dropped) must read outside; bf16 is printed. Each rank's parameter
+    and Adam bytes against one process; steps/s at model=2, data=2 and
+    one process; collectives a step; (c)'s state saved unsharded,
+    restored into one process and served once (K1 every bar)."""
+    import shutil
+    import tempfile
+
+    from musicvae_tpu_torch.checkpoints import io as ckpt_io
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.parallel import tp as tp_lib
+    from musicvae_tpu_torch.train import trainer
+
+    _kernels.BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="tp_smoke_",
+                            dir=_kernels.BUILD_ROOT.parent)
+    out, runs, failed = {"card": card}, {}, []
+    t_phase = time.perf_counter()
+    try:
+        ds = make_bar_cache(seed)
+        ds.save_npy(os.path.join(root, "c2.npz"))
+        t0 = time.perf_counter()
+        procs, t_launch = _tp_launch(root, seed)
+        # seconds from the launch to each process's entry and joins, and
+        # of each of its runs
+        out["launch"] = {
+            "seconds": time.perf_counter() - t0,
+            "stamps_s": [{k: v - t_launch for k, v in p["stamps"].items()}
+                         for p in procs],
+            "run_s": {k: r["seconds"] for k, r in procs[0]["runs"].items()},
+            "dispatch_s": {k: r["dispatch_s"]
+                           for k, r in procs[0]["runs"].items()}}
+        log(f"tp launch ({card}): {out['launch']}")
+        one = {}
+        for _, _, dtype, conv1, _, steps, _ in TP_RUNS:
+            if (dtype, conv1, steps) not in one:
+                one[(dtype, conv1, steps)] = _tp_train(
+                    _tp_config(seed, dtype, conv1, steps), ds, dev)
+        log(f"tp one process ({card}): "
+            f"{ {'_'.join(map(str, k)): r for k, r in one.items()} }")
+        out["column_hooks"] = _column_hook_cost(seed, ds, dev)
+        log(f"tp column hooks on a replicated model ({card}): "
+            f"{out['column_hooks']}")
+        res = {}
+        for key, world, dtype, conv1, model, steps, control in TP_RUNS:
+            ranks = [p["runs"][key] for p in procs[:world]]
+            ref = one[(dtype, conv1, steps)]
+            r = {"world": world, "mesh": ranks[0]["mesh"],
+                 "loss_rel_diff": abs(ranks[0]["loss"] - ref["loss"])
+                 / abs(ref["loss"]),
+                 "param_sum_rel_diff": abs(ranks[0]["param_sum"]
+                                           - ref["param_sum"])
+                 / ref["param_sum"],
+                 "ema_sum_rel_diff": abs(ranks[0]["ema_sum"]
+                                         - ref["ema_sum"])
+                 / ref["ema_sum"],
+                 "ranks_equal": all(
+                     (q["loss"], q["param_sum"], q["ema_sum"])
+                     == (ranks[0]["loss"], ranks[0]["param_sum"],
+                         ranks[0]["ema_sum"]) for q in ranks),
+                 "steps_per_s": [q["steps_per_s"] for q in ranks],
+                 "one_process_steps_per_s": ref["steps_per_s"],
+                 "bytes": [q["bytes"] for q in ranks],
+                 "one_process_bytes": ref["bytes"],
+                 "collectives_per_step":
+                     ranks[0]["collectives_per_step"],
+                 "first_conv_channels":
+                     ranks[0]["first_conv_channels"]}
+            loss_tol, sum_tol = DP_RTOL["float32"]
+            within = (r["loss_rel_diff"] <= loss_tol
+                      and r["param_sum_rel_diff"] <= sum_tol
+                      and r["ema_sum_rel_diff"] <= sum_tol)
+            r["within_f32_bound"] = within
+            res[key] = r
+            log(f"tp {key} ({card}): {r}")
+            runs[key] = {k: sum(q["launches"][k] for q in ranks)
+                         for k in ranks[0]["launches"]}
+            # K4 once a step on every process; K1/K1b as often as on
+            # one process, at C / model channels
+            if not all(q["launches"]["masked_bce_sum_dual"] == steps
+                       and q["step"] == steps for q in ranks):
+                failed.append(f"{key}: K4 not once a step on every "
+                              f"process: {[q['launches'] for q in ranks]}")
+            if any(q["launches"][k] != ref["launches"][k] for q in ranks
+                   for k in ("first_conv_s2", "first_conv_s2_bwd")):
+                failed.append(f"{key}: first-conv launches differ from "
+                              f"one process's")
+            if conv1 and not (ref["launches"]["first_conv_s2"] > 0
+                              and r["first_conv_channels"]
+                              == 16 // model):
+                failed.append(f"{key}: the first-conv kernels did not "
+                              f"run on a {16 // model}-channel shard")
+            if not r["ranks_equal"]:
+                failed.append(f"{key}: the processes differ")
+            if not ranks[0]["sharded"] == (model > 1):
+                failed.append(f"{key}: sharded is {ranks[0]['sharded']}")
+            if dtype == "float32" and within == control:
+                failed.append(
+                    f"{key}: {'inside' if control else 'outside'} the"
+                    f" f32 bound: {r}")
+        out["runs"] = res
+        # (c)'s checkpoint: the unsharded file, restored into one process,
+        # holds the parameters the processes gathered, and serves
+        manager = ckpt_io.make_manager(os.path.join(root, "ck_tp"))
+        cfg_s = ckpt_io.restore_config(manager)
+        _, state = trainer.create_state(cfg_s, device=dev)
+        state, _ = ckpt_io.restore(manager, state)
+        restored = float(sum(p.detach().double().abs().sum().item()
+                             for p in state.params))
+        want = procs[0]["runs"][TP_SAVED]["param_sum"]
+        out["restored"] = {"step": int(state.step), "param_sum": restored,
+                           "gathered_param_sum": want,
+                           "bytes": tp_lib.state_bytes(state)}
+        del state
+        saved_steps = next(r[5] for r in TP_RUNS if r[0] == TP_SAVED)
+        check(out["restored"]["step"] == saved_steps and restored == want,
+              f"TP checkpoint restored into one process: {out['restored']}")
+        _kernels.reset_launches()
+        rc, o, e = _cli(["serve", "--ckpt-dir", manager.directory,
+                         "--use-pallas-conv1"], stdin='{"id": 1, "seed": 3}\n')
+        runs["tp_serve"] = dict(_kernels.LAUNCHES)
+        resp = json.loads(o.splitlines()[0]) if o else {}
+        check(rc == 0 and len(resp.get("midi_b64", [])) == 4,
+              f"serve of the TP checkpoint: rc {rc}, {o[:300]}: {e[-2000:]}")
+        # the warm-up sweep and the request, 16 bars each
+        check(runs["tp_serve"]["first_conv_s2"] == 32,
+              f"serve of the TP checkpoint: launches {runs['tp_serve']}")
+        out["restored"]["served_density"] = resp["density"]
+        log(f"tp checkpoint restored and served ({card}): {out['restored']}")
+        out["kernel_shapes"] = _tp_kernel_shapes(seed, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not failed, "; ".join(failed))
+    out["launches"] = runs
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"tp launches: {runs}")
+    log(f"tp phase: {out['seconds']:.1f} s")
+    return runs, out
+
+
 def profile_phase(seed: int, dev: torch.device):
     """Development aid, not part of the default run: where one train
     step's time goes. Which parts of a step the launch queue can hold
@@ -4061,7 +4520,8 @@ def profile_phase(seed: int, dev: torch.device):
 
 
 PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train",
-          "ckpt", "corpus", "serve_stack", "kinds", "patch_attn", "parallel")
+          "ckpt", "corpus", "serve_stack", "kinds", "patch_attn", "parallel",
+          "tp")
 
 
 def _card_settings() -> None:
@@ -4078,6 +4538,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         _card_settings()
         return dp_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-worker"]:
+        _card_settings()
+        return tp_worker(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None, metavar="PHASES",
@@ -4155,6 +4618,13 @@ def main() -> int:
                 e["name"].split()[0])
             if rows:
                 e["parallel_shapes"] = rows
+    if "tp" in only:
+        tp_runs, details["tp"] = tp_phase(args.seed, dev, card)
+        runs.update(tp_runs)
+        for e in entries:
+            rows = details["tp"]["kernel_shapes"].get(e["name"].split()[0])
+            if rows:
+                e["tp_shapes"] = rows
     if "profile" in only:
         details["profile"] = profile_phase(args.seed, dev)
 

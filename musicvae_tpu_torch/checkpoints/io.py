@@ -19,7 +19,9 @@ of the same template has restored.
 
 Under multi-process training (parallel/distributed.py) process 0 alone
 writes and quarantines, and every process passes a barrier after a save;
-``restore`` reads the same files on every process.
+``restore`` reads the same files on every process. A tensor-parallel
+state is saved unsharded and restores into one process or into a sharded
+state alike.
 
 A JAX checkpoint (the Orbax layout) is brought across by the repo-root
 script ``import_orbax_checkpoint.py``, on a machine with jax.
@@ -190,15 +192,23 @@ def save(manager: CheckpointManager, state, cfg: config_lib.Config,
     barrier. The copy to the host happens here, on the caller's thread,
     and is the only wait for the card; the file write runs on the
     manager's thread (``wait`` joins it). A second save waits for the
-    first."""
+    first.
+
+    A tensor-parallel state (parallel/tp.py) is written unsharded, the
+    file a one-process run writes: every process gathers its model
+    group's shards, and process 0 writes them."""
     written = False
+    # the gather is collective: every process of a sharded state takes part
+    sd = state.state_dict(device="cpu") if state.tp is not None else None
     if distributed.rank() == 0:
         step = int(state.step)
         manager.wait_until_finished()
         latest = manager.latest_step()
         if latest is None or step > latest:
-            written = manager.write(step, state.state_dict(device="cpu"),
-                                    config_to_json(cfg), wait=wait)
+            if sd is None:
+                sd = state.state_dict(device="cpu")
+            written = manager.write(step, sd, config_to_json(cfg),
+                                    wait=wait)
     if distributed.world_size() > 1:
         torch.distributed.barrier()
     return written

@@ -80,6 +80,7 @@ from musicvae_tpu_torch.midi.smf import SMFError
 from musicvae_tpu_torch.models.vae import PianoRollVAE, build_model
 from musicvae_tpu_torch.ops.pack import pack_bits, unpack_bits_np
 from musicvae_tpu_torch.parallel import distributed, make_mesh
+from musicvae_tpu_torch.parallel.mesh import data_axis
 
 # the JAX package's wording, for the commands that take --ema
 _EMA_ERROR = ("error: --ema needs a checkpoint trained with "
@@ -1226,7 +1227,9 @@ def _train_stream(args: argparse.Namespace, cfg: Config, ds):
                   "the replicated eval sweep needs identical host data). "
                   "Set --eval-every 0.", file=sys.stderr)
             return None
-        pc, rank = distributed.world_size(), distributed.rank()
+        # the processes of one model group (a config mesh with a model
+        # axis) train on the same rows: the shard goes by the data index
+        pc, rank = data_axis(cfg.mesh)
         if b % pc:
             print(f"error: batch_size {b} not divisible by {pc} processes",
                   file=sys.stderr)

@@ -27,12 +27,12 @@ from musicvae_tpu_torch.config import MidiSpec
 
 class HostLocalBatches:
     """Marks a streaming iterator as yielding per-process local batch
-    slices: each of the P processes feeds ``train()`` an iterator whose
-    batches hold only its own [global_batch / P] rows (typically windows
-    of its ``PianoRollDataset.host_shard``), so no process materializes
-    the global batch. The global batch is the process-order concatenation
-    of the local slices: process p owns rows [p·B/P, (p+1)·B/P)
-    (parallel/mesh.py)."""
+    slices: each process feeds ``train()`` an iterator whose batches hold
+    only its own [global_batch / D] rows (typically windows of its
+    ``PianoRollDataset.host_shard``), so no process materializes the
+    global batch. The global batch is the data-index-order concatenation
+    of the local slices: the processes at data index d of D own rows
+    [d·B/D, (d+1)·B/D) (parallel/mesh.py; D = P without a model axis)."""
 
     def __init__(self, it: Iterator):
         self._it = iter(it)

@@ -146,6 +146,12 @@ def pitch_mask(spec: MidiSpec, device=None) -> torch.Tensor:
     return ((p >= spec.pitch_lo) & (p < spec.pitch_hi)).to(torch.float32)
 
 
+def crop_view(roll_or_bars, spec: MidiSpec):
+    """§5 hard slice along the last (pitch) axis, for export (an array or
+    a tensor, as a view)."""
+    return roll_or_bars[..., spec.pitch_lo:spec.pitch_hi]
+
+
 def midi_bytes_to_bars(data: bytes, spec: MidiSpec,
                        max_events: int = None,
                        use_native: bool = True,
@@ -231,6 +237,17 @@ def corpus_to_bars(datas: Sequence[bytes], spec: MidiSpec,
         out.append(roll.astype(dtype).reshape(-1, spec.steps_per_bar,
                                               spec.num_pitches))
     return out
+
+
+def roll_to_notes(roll: np.ndarray, spec: MidiSpec,
+                  ticks_per_quarter: int = 480) -> list:
+    """Maximal horizontal runs of 1s become ``smf.Note``s, sorted by
+    (start, pitch, end) (host side, numpy): ``roll_to_note_arrays`` as
+    note objects."""
+    pitch, start, end = roll_to_note_arrays(roll, spec, ticks_per_quarter)
+    return [smf.Note(pitch=int(p), start_tick=int(s), end_tick=int(e),
+                     velocity=spec.velocity)
+            for p, s, e in zip(pitch, start, end)]
 
 
 def roll_to_note_arrays(roll: np.ndarray, spec: MidiSpec,

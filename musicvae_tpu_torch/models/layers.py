@@ -14,6 +14,14 @@ each layer casts its input, weight and bias to the compute dtype at use;
 the latent heads return f32. ``torch.autocast`` is not used: its cast
 points differ from flax's. Convs compute in NCHW but every flatten and
 reshape keeps the JAX package's NHWC element order.
+
+Under tensor parallelism (parallel/tp.py ``shard_params``) a layer whose
+weight holds one model rank's output slice computes that slice and
+gathers the full output (``column_in``, ``column_out``): the GRU cell its
+new hidden state, every dense, conv and transposed conv its output
+channels. Each such class declares, as ``column``, the weight layout its
+computation takes (``shard_params`` reads it). A replicated layer runs as
+it is.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from musicvae_tpu_torch.ops.conv1 import first_conv_s2
+from musicvae_tpu_torch.parallel.tp import (Layout, column_in, column_out,
+                                            shard_of)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -46,6 +56,8 @@ def _halved(n: int, times: int) -> int:
 class Dense(nn.Linear):
     """``nn.Linear`` with flax ``nn.Dense``'s dtype semantics."""
 
+    column = Layout(0)         # output features
+
     def __init__(self, in_features: int, out_features: int,
                  dtype: str = "float32"):
         super().__init__(in_features, out_features)
@@ -53,7 +65,23 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        y = F.linear(column_in(x, self).to(dt), self.weight.to(dt),
+                     self.bias.to(dt))
+        return column_out(y, -1, self)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` as a parameter holder: ``ConvTrunk`` and ``PatchHead``
+    run its op themselves, column-parallel on its output channels."""
+
+    column = Layout(0)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` as a parameter holder: ``_upsample`` runs its
+    op, column-parallel on its output channels ([in,out,kh,kw] dim 1)."""
+
+    column = Layout(1)
 
 
 def space_to_depth(x: torch.Tensor, pt: int, pp: int) -> torch.Tensor:
@@ -97,9 +125,9 @@ class ConvTrunk(nn.Module):
         self.patch = None if patch is None else tuple(patch)
         chans = [1 if patch is None else patch[0] * patch[1], *channels]
         self.convs = nn.ModuleList(
-            nn.Conv2d(chans[i], chans[i + 1], 3,
-                      stride=1 if patch is not None and i == 0 else 2,
-                      padding=1)
+            Conv2d(chans[i], chans[i + 1], 3,
+                   stride=1 if patch is not None and i == 0 else 2,
+                   padding=1)
             for i in range(len(channels)))
         self.compute_dtype = dtype_of(dtype)
         self.first_conv_kernel = first_conv_kernel and patch is None
@@ -125,12 +153,14 @@ class ConvTrunk(nn.Module):
             c0 = convs.pop(0)
             w = c0.weight[:, 0].permute(1, 2, 0).contiguous()    # [3,3,C]
             h = first_conv_s2(x, w, c0.bias, gelu=True, out_dtype=dt)
-            h = h.permute(0, 3, 1, 2)                    # NHWC → NCHW view
+            h = column_out(h, -1, c0).permute(0, 3, 1, 2)  # NHWC → NCHW
         else:
             h = x.to(dt)[:, None]
         for conv in convs:
-            h = _gelu(F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt),
-                               stride=conv.stride, padding=1))
+            h = _gelu(F.conv2d(column_in(h, conv), conv.weight.to(dt),
+                               conv.bias.to(dt), stride=conv.stride,
+                               padding=1))
+            h = column_out(h, 1, conv)
         return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
 
 
@@ -189,7 +219,7 @@ class BarDecoderHead(nn.Module):
         self.fc = Dense(in_dim, self.t0 * self.p0 * channels[0], dtype)
         chans = [*channels, 1]
         self.deconvs = nn.ModuleList(
-            nn.ConvTranspose2d(chans[i], chans[i + 1], 3, stride=2, padding=0)
+            ConvTranspose2d(chans[i], chans[i + 1], 3, stride=2, padding=0)
             for i in range(n_up))
         self.compute_dtype = dtype_of(dtype)
         self.logits_dtype = dtype_of(logits_dtype)
@@ -210,10 +240,11 @@ def _upsample(h: torch.Tensor, deconvs, dt: torch.dtype,
     last."""
     for i, d in enumerate(deconvs):
         t, p = h.shape[2], h.shape[3]
-        h = F.conv_transpose2d(h, d.weight.to(dt), d.bias.to(dt),
-                               stride=2)[:, :, :2 * t, :2 * p]
+        h = F.conv_transpose2d(column_in(h, d), d.weight.to(dt),
+                               d.bias.to(dt), stride=2)[:, :, :2 * t, :2 * p]
         if gelu_last or i + 1 < len(deconvs):
             h = _gelu(h)
+        h = column_out(h, 1, d)
     return h
 
 
@@ -236,10 +267,10 @@ class PatchHead(nn.Module):
         self.steps, self.pitches = steps, pitches
         self.fc = Dense(in_dim, self.t0 * self.p0 * channels[0], dtype)
         self.deconvs = nn.ModuleList(
-            nn.ConvTranspose2d(channels[i], channels[i + 1], 3, stride=2,
-                               padding=0)
+            ConvTranspose2d(channels[i], channels[i + 1], 3, stride=2,
+                            padding=0)
             for i in range(n_up))
-        self.out = nn.Conv2d(channels[-1], pt * pp, 3, padding=1)
+        self.out = Conv2d(channels[-1], pt * pp, 3, padding=1)
         self.compute_dtype = dtype_of(dtype)
         self.logits_dtype = dtype_of(logits_dtype)
 
@@ -248,8 +279,9 @@ class PatchHead(nn.Module):
         h = _gelu(self.fc(v))
         h = h.reshape(h.shape[0], self.t0, self.p0, -1).permute(0, 3, 1, 2)
         h = _upsample(h, self.deconvs, dt, gelu_last=True)
-        h = F.conv2d(h, self.out.weight.to(dt), self.out.bias.to(dt),
-                     padding=1)
+        h = F.conv2d(column_in(h, self.out), self.out.weight.to(dt),
+                     self.out.bias.to(dt), padding=1)
+        h = column_out(h, 1, self.out)
         h = depth_to_space(h.permute(0, 2, 3, 1), *self.patch)
         # contiguous: depth_to_space permutes, and the cast keeps strides
         return h[:, :self.steps, :self.pitches].to(
@@ -438,7 +470,13 @@ class GRUCell(nn.Module):
     flax's r/z biases folded into b_ir/b_iz. They are constants here too:
     no gradient reaches them, so training moves b_ir/b_iz alone, as it
     moves flax's single r/z biases (two trained copies of one bias would
-    move it twice as fast under Adam)."""
+    move it twice as fast under Adam).
+
+    Sharded over a model axis, each rank holds rows g·H + [r·H/M,
+    (r+1)·H/M) of every gate g, computes those units of h' and gathers
+    h' once a step."""
+
+    column = Layout(0, 3)      # the hidden units of every gate
 
     def __init__(self, input_size: int, hidden: int,
                  dtype: str = "bfloat16"):
@@ -454,8 +492,9 @@ class GRUCell(nn.Module):
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        h = h.to(dt)
-        gi = F.linear(x.to(dt), self.weight_ih.to(dt), self.bias_ih.to(dt))
+        h = column_in(h.to(dt), self)
+        gi = F.linear(column_in(x, self).to(dt), self.weight_ih.to(dt),
+                      self.bias_ih.to(dt))
         bias_hh = self.bias_hh
         if torch.is_grad_enabled() and bias_hh.requires_grad:
             rz = 2 * bias_hh.shape[0] // 3
@@ -466,4 +505,7 @@ class GRUCell(nn.Module):
         r = torch.sigmoid(i_r + h_r)
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
-        return (1.0 - z) * n + z * h
+        shard = shard_of(self)
+        if shard is not None:     # this rank's units of h
+            h = h.narrow(-1, shard.rank * n.shape[-1], n.shape[-1])
+        return column_out((1.0 - z) * n + z * h, -1, self)

@@ -557,6 +557,17 @@ def init_like_flax(model: nn.Module) -> None:
             nn.init.zeros_(mod.bias)
 
 
+def init_params(cfg: Config, generator: torch.Generator):
+    """(model, state dict) for ``cfg``, its weights drawn as
+    ``build_model`` draws them from a seed taken from ``generator``; the
+    model lives on the generator's device (a CUDA generator: the card).
+    The counterpart of the JAX package's ``init_params(cfg, rng)``."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
+                             device=generator.device))
+    model = build_model(cfg, device=generator.device, seed=seed)
+    return model, model.state_dict()
+
+
 def build_model(cfg: Config, device="cuda",
                 seed: Optional[int] = None) -> PianoRollVAE:
     """The model for ``cfg`` on ``device``, in eval mode, with random

@@ -20,8 +20,11 @@ log, eval and checkpoint I/O. Its data paths are the JAX package's three:
 
 Multi-process data parallelism (parallel/): each process drives one
 device and trains on its rows of every global batch; the gradients and
-the logged metrics are averaged over the group inside the step, so every
-process holds the same state.
+the logged metrics are averaged over the data group inside the step, so
+every process holds the same state. Under tensor parallelism
+(parallel/tp.py ``shard_params``) the processes of a model group train
+on the same rows, each holding its shards of the weights and of their
+moments; the clip's norm then spans the shards.
 
 What differs from the JAX package, and why:
 
@@ -53,13 +56,14 @@ What differs from the JAX package, and why:
 
 Checkpoints are checkpoints/io.py's files, written by process 0, and a
 preemption stop is train/preemption.py's ``GracefulStop``, decided
-collectively. Tensor parallelism is not ported (parallel/mesh.py).
+collectively; a sharded state is saved unsharded.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -80,6 +84,7 @@ from musicvae_tpu_torch.models.vae import (PianoRollVAE, build_model,
 from musicvae_tpu_torch.ops import augment, fused_elbo, losses
 from musicvae_tpu_torch.ops.pack import pack_bits_np, unpack_bits
 from musicvae_tpu_torch.parallel import distributed
+from musicvae_tpu_torch.parallel import tp as tp_lib
 from musicvae_tpu_torch.parallel.mesh import (DataMesh, make_mesh,
                                               shard_batch)
 
@@ -130,9 +135,16 @@ def make_lr(cfg: Config):
     return joined
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ‖t‖²) over the list, a 0-d tensor (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: List[torch.Tensor], tp=None) -> torch.Tensor:
+    """sqrt(Σ‖t‖²) over the list, a 0-d tensor (optax.global_norm).
+    ``tp`` (a tensor-parallel state's ``parallel.tp.TPState``, its entries
+    in the list's order): the norm of the whole tree the shards make up,
+    the sharded entries' Σ‖t‖² summed over the model group and each
+    replicated entry counted once."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if tp is None:
+        return torch.linalg.vector_norm(norms)
+    return tp_lib.global_norm(norms, tp)
 
 
 class Adam:
@@ -235,13 +247,16 @@ class TrainState:
     parameters are the trained weights), the optimizer with its moments
     and count, the step counter (an int32 0-d tensor on the device), the
     device generator the noise comes from, and the EMA copy of the model
-    (None when ``TrainSpec.ema_decay`` is 0)."""
+    (None when ``TrainSpec.ema_decay`` is 0). ``tp``: None, or after
+    ``parallel.tp.shard_params`` which parameters hold only this
+    process's shard (their moments and EMA copies too)."""
 
     def __init__(self, model: PianoRollVAE, opt: Adam, step: torch.Tensor,
                  generator: torch.Generator,
                  ema_model: Optional[PianoRollVAE] = None):
         self.model, self.opt, self.step = model, opt, step
         self.generator, self.ema_model = generator, ema_model
+        self.tp: Optional[tp_lib.TPState] = None
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -260,7 +275,9 @@ class TrainState:
         name, count, step and the generator's state. ``device``: where the
         copy goes (default the state's own device); a copy from the card to
         the CPU waits for the card once, after every tensor's copy is
-        queued (checkpoints/io.py ``save``)."""
+        queued (checkpoints/io.py ``save``). A tensor-parallel state gives
+        the unsharded tensors, gathered over its model group: every
+        process of the group must call this together."""
         names = self._names()
         dev = self.step.device
         to = dev if device is None else torch.device(device)
@@ -270,6 +287,8 @@ class TrainState:
             return t.clone() if to == dev else t.to(to, non_blocking=True)
 
         def named(tensors):
+            if self.tp is not None:
+                tensors = self.tp.unshard_all(tensors)
             return {n: copy(t) for n, t in zip(names, tensors)}
 
         sd = {"params": named(self.params),
@@ -290,15 +309,19 @@ class TrainState:
         ``sd`` without "rng", or with the state of another kind of
         generator (a CPU state's on a CUDA state, or the reverse), keeps
         this state's generator: the noise of one kind cannot continue on
-        the other."""
+        the other. A tensor-parallel state takes the unsharded tensors
+        and keeps its own shard of each."""
         names = self._names()
 
         def load(dst, src, what):
             if set(src) != set(names):
                 raise KeyError(f"{what}: keys differ from the model's "
                                f"parameters: {sorted(set(src) ^ set(names))}")
-            for n, d in zip(names, dst):
-                d.copy_(torch.as_tensor(src[n]).reshape(d.shape))
+            for i, (n, d) in enumerate(zip(names, dst)):
+                t = torch.as_tensor(src[n])
+                if self.tp is not None:
+                    t = self.tp.local(i, t.reshape(self.tp.shapes[i]))
+                d.copy_(t.reshape(d.shape))
 
         load(self.params, sd["params"], "params")
         load(self.opt.mu, sd["opt"]["mu"], "opt.mu")
@@ -346,16 +369,17 @@ def create_state(cfg: Config, device="cuda",
 
 # -- the loss and the step -------------------------------------------------------
 
-def _group_mean(t: torch.Tensor) -> torch.Tensor:
-    """The mean of ``t`` over the process group's processes (a copy)."""
+def _group_mean(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """The mean of ``t`` over ``mesh``'s data group (a copy)."""
     t = t.clone()
-    dist.all_reduce(t)
-    return t / dist.get_world_size()
+    dist.all_reduce(t, group=mesh.data_group)
+    return t / mesh.data
 
 
 def elbo_from_outputs(cfg: Config, logits, x, latents, beta,
                       use_pallas: bool = False, free_bits: float = 0.0,
-                      pallas_dual: bool = False, group: bool = False):
+                      pallas_dual: bool = False,
+                      mesh: Optional[DataMesh] = None):
     """recon + beta * (sum of per-level KLs), batch-mean (ops/losses.py).
 
     With ``use_pallas`` the masked-BCE sum goes through ops/fused_elbo.py
@@ -363,10 +387,10 @@ def elbo_from_outputs(cfg: Config, logits, x, latents, beta,
     forward, for differentiated graphs. x goes in as it is, uint8 included.
 
     ``free_bits`` > 0 floors each latent dimension's batch-mean KL in the
-    minimized objective; the reported ``kl`` stays the true KL. ``group``:
+    minimized objective; the reported ``kl`` stays the true KL. ``mesh``:
     these are one process's rows of a global batch split evenly over the
-    processes of the group, and the floor applies to the global batch's
-    means (``losses.kl_free_bits``'s ``reduce``)."""
+    processes of ``mesh``'s data group, and the floor applies to the
+    global batch's means (``losses.kl_free_bits``'s ``reduce``)."""
     mask = pitch_mask(cfg.midi, logits.device)
     batch = logits.shape[0]
     if use_pallas:
@@ -377,7 +401,8 @@ def elbo_from_outputs(cfg: Config, logits, x, latents, beta,
         recon = losses.masked_bce_sum(logits, x, mask) / batch
     kl = sum(losses.kl_diag_gaussian(mu, lv) for mu, lv in latents) / batch
     if free_bits > 0.0:
-        reduce = _group_mean if group else None
+        reduce = None if mesh is None else functools.partial(_group_mean,
+                                                             mesh=mesh)
         kl_obj = sum(losses.kl_free_bits(mu, lv, free_bits, reduce)
                      for mu, lv in latents) / batch
     else:
@@ -390,15 +415,17 @@ _AVERAGED = ("loss", "recon", "kl")     # metrics averaged over the group
 
 
 def _average_over_group(grads: List[torch.Tensor],
-                        metrics: Dict[str, torch.Tensor], world: int):
-    """(grads, metrics) averaged over the process group: one flat f32
+                        metrics: Dict[str, torch.Tensor], mesh: DataMesh):
+    """(grads, metrics) averaged over ``mesh``'s data group: one flat f32
     bucket of every gradient and the ``_AVERAGED`` metrics, one
-    all-reduce (SUM), then ÷ world. Every process gets the same bits."""
+    all-reduce (SUM), then ÷ data. Every process of the group gets the
+    same bits. Under tensor parallelism a process's gradients are those
+    of its own shards, which the processes of its data group share."""
     flat = torch.cat([g.reshape(-1) for g in grads]
                      + [metrics[k].reshape(1).to(grads[0].dtype)
                         for k in _AVERAGED])
-    dist.all_reduce(flat)
-    flat /= world
+    dist.all_reduce(flat, group=mesh.data_group)
+    flat /= mesh.data
     out, i = [], 0
     for g in grads:
         out.append(flat[i:i + g.numel()].view_as(g))
@@ -419,7 +446,9 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
     the global batch; the noise is drawn for the global batch and this
     process keeps its rows (``eps`` and ``shifts``, when given, are the
     global batch's too), and with a process group the gradients and the
-    loss, recon and kl are averaged over it."""
+    loss, recon and kl are averaged over the data group. A state sharded
+    by ``parallel.tp.shard_params`` takes its clip's norm over the whole
+    tree its model group holds."""
     t = cfg.train
     cond = cfg.model.kind == "cond"
     if t.transpose_aug and cond and (cfg.model.cond_chord_classes != 24
@@ -442,7 +471,10 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
     if use_pallas is None:
         use_pallas = t.use_pallas_loss and device.type == "cuda"
     world = 1 if mesh is None else mesh.data
-    reduce = mesh is not None and mesh.group
+    # averaged over the data group whenever a group is joined and the
+    # group is not one process of a model axis
+    reduce = mesh is not None and mesh.group and (
+        mesh.data > 1 or mesh.model == 1)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    eps=None, shifts: Optional[torch.Tensor] = None):
@@ -481,13 +513,18 @@ def _train_step_body(cfg: Config, model: PianoRollVAE,
         logits, latents = model(x, eps, **labels)
         loss, metrics = elbo_from_outputs(cfg, logits, x, latents, beta,
                                           use_pallas, free_bits=t.free_bits,
-                                          pallas_dual=True, group=reduce)
+                                          pallas_dual=True,
+                                          mesh=mesh if reduce else None)
+        if torch.is_anomaly_enabled() and not bool(torch.isfinite(loss)):
+            # utils/debug.py debug_mode: jax_debug_nans' counterpart
+            raise FloatingPointError(f"non-finite train loss "
+                                     f"{float(loss.detach())} (debug_mode)")
         grads = torch.autograd.grad(loss, state.params)
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
             if reduce:
-                grads, metrics = _average_over_group(grads, metrics, world)
-            metrics["grad_norm"] = global_norm(grads)
+                grads, metrics = _average_over_group(grads, metrics, mesh)
+            metrics["grad_norm"] = global_norm(grads, state.tp)
             metrics["nonfinite"] = 1.0 - torch.isfinite(
                 metrics["loss"]).to(torch.float32)
             state.opt.update(grads, metrics["grad_norm"])
@@ -821,7 +858,7 @@ def _start_producer(data, sizes, cfg: Config, mesh: DataMesh,
                             "host-local streaming batches must carry "
                             f"batch_size/process_count = {b}/{mesh.data} "
                             f"rows each; got {local}")
-                    if mesh.data > 1:
+                    if mesh.processes > 1:
                         # replicated: every process's stack is the same
                         # (its content hashed); host-local: only the
                         # structure must agree
@@ -884,7 +921,7 @@ def _next_stack(batch_q: "queue.Queue", device: torch.device):
 def _collective_stop(requested: bool, mesh: DataMesh) -> bool:
     """Whether any process of the group was asked to stop: every process
     stops at the same dispatch and enters the save together."""
-    if mesh.data == 1:
+    if mesh.processes == 1:
         return requested
     dev = distributed.collective_device()
     flag = torch.tensor([int(requested)], dtype=torch.int32, device=dev)
@@ -894,7 +931,7 @@ def _collective_stop(requested: bool, mesh: DataMesh) -> bool:
 
 def _broadcast_float(value: float, mesh: DataMesh) -> float:
     """Process 0's ``value`` on every process."""
-    if mesh.data == 1:
+    if mesh.processes == 1:
         return value
     t = torch.tensor([value], dtype=torch.float64,
                      device=distributed.collective_device())
@@ -1031,7 +1068,7 @@ def train(cfg: Config,
                 build_sharded_arrays, local_block, make_sharded_id_schedule)
             arrays, counts = build_sharded_arrays(data, mesh.data,
                                                   cfg.train.seed)
-            arrays = local_block(arrays, mesh.data, mesh.rank)
+            arrays = local_block(arrays, mesh.data, mesh.data_rank)
             ids_for_step = make_sharded_id_schedule(cfg.train.seed, counts,
                                                     b)
         elif cfg.train.corpus_layout == "replicated":

@@ -200,7 +200,7 @@ def test_one_process_checks_nothing():
     assert distributed.world_size() == 1 and distributed.rank() == 0
 
 
-def test_make_mesh_clamps_the_data_axis_and_refuses_tp():
+def test_make_mesh_clamps_the_data_axis_and_refuses_tp(monkeypatch):
     # c4_cond is registered for 8 data-parallel devices: one process
     # runs its global batch, as the JAX package's clamp does
     spec = get_config("c4_cond").mesh
@@ -211,7 +211,13 @@ def test_make_mesh_clamps_the_data_axis_and_refuses_tp():
     assert m.rows(256) == slice(0, 256)
     assert tmesh.make_mesh(MeshSpec(), "cuda").device == \
         torch.device("cuda", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A16"):
+    # a model axis the world cannot hold: the JAX package's ValueError,
+    # and a world it does not divide
+    with pytest.raises(ValueError, match="model axis 2 > 1 devices"):
+        tmesh.make_mesh(dataclasses.replace(spec, model=2), "cpu")
+    monkeypatch.setattr(distributed, "world_size", lambda: 3)
+    with pytest.raises(ValueError, match="3 processes are not a multiple "
+                                         "of the model axis 2"):
         tmesh.make_mesh(dataclasses.replace(spec, model=2), "cpu")
 
 

@@ -33,7 +33,7 @@ _NEW_MODULES = ("train.trainer", "data.dataset", "utils.logging",
                 "midi.labels", "data.synthetic", "ops.pack",
                 "utils.genmetrics", "client", "checkpoints.safetensors_io",
                 "parallel.distributed", "parallel.mesh",
-                "train.sharded_corpus")
+                "train.sharded_corpus", "parallel.tp", "utils.debug")
 
 # every module of the port imported with the compiler and the loader
 # disabled (after torch, which loads its own libraries): an import that

@@ -20,7 +20,7 @@ from musicvae_tpu_torch.cli import main
 from musicvae_tpu_torch.config import MeshSpec, MidiSpec
 from musicvae_tpu_torch.data.dataset import PianoRollDataset
 from musicvae_tpu_torch.data.synthetic import synth_corpus
-from musicvae_tpu_torch.parallel import make_mesh
+from musicvae_tpu_torch.parallel import distributed, make_mesh
 from musicvae_tpu_torch.train import trainer
 from musicvae_tpu_torch.utils.logging import MetricsLogger
 from torch_port_helpers import (one_torch_thread,  # noqa: F401
@@ -176,13 +176,19 @@ def test_train_eval_is_the_same_sweep_every_time():
 @pytest.mark.parametrize("mesh,item", [
     (MeshSpec(data=2, model=2), "A16"),
 ])
-def test_train_refuses_unported_arguments(mesh, item):
-    """Tensor parallelism is the one argument the port does not take: a
-    config whose mesh has a model axis, from which the data layout is
-    built when ``train`` is given none, is refused by name."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        trainer.train(_cfg().replace(mesh=mesh), _dataset(), num_steps=1,
-                      device="cpu")
+def test_train_refuses_unported_arguments(mesh, item, monkeypatch):
+    """A config whose mesh has a model axis (tensor parallelism, ROADMAP.md
+    item ``item``, now ported) builds its layout when ``train`` is given
+    none, and the layout refuses, in the JAX package's words, a model
+    axis larger than the world, and one the world's processes do not
+    divide."""
+    cfg = _cfg().replace(mesh=mesh)
+    with pytest.raises(ValueError, match="model axis 2 > 1 devices"):
+        trainer.train(cfg, _dataset(), num_steps=1, device="cpu")
+    monkeypatch.setattr(distributed, "world_size", lambda: 3)
+    with pytest.raises(ValueError, match="3 processes are not a multiple "
+                                         "of the model axis 2"):
+        trainer.train(cfg, _dataset(), num_steps=1, device="cpu")
 
 
 def test_train_returns_at_a_stop_request():
