@@ -18,7 +18,12 @@ check does not hold:
    the CPU (the path the CPU tests hold against the JAX package);
 4. serve: full-width c2_gru_4bar (bf16, first-conv kernel on, seeded
    random weights) answers generation and stats requests through the
-   port's serve loop; the first-conv kernel must run every bar;
+   port's serve loop; the first-conv kernel must run every bar (counted
+   through the sweep graph's replays); the served sweep's captured graphs
+   equal the eager sweep body bit for bit over 4 seeds, with and without
+   a seed bar, and other seeds give other bars; p50 latency and req/s of
+   stdin serving, graphs and eager (``debug_mode(disable_jit=True)``) in
+   turns;
 5. eval: one 64x4-bar batch scored through the masked-BCE kernel, held
    against the same eval with the plain BCE;
 6. fused_elbo: ``fused_elbo()`` and its gradients (the single-output BCE
@@ -26,18 +31,28 @@ check does not hold:
    under autograd;
 7. train: full-width c2_gru_4bar (bf16, batch 64) takes 20 steps in 5-step
    dispatches through ``train()`` on a seeded bar cache resident on the
-   card. The dual-output BCE kernel must run once a step and the loss must
-   fall; the same run repeated gives the same loss and parameter bits; 5
-   steps with the plain BCE, and 5 with the first conv's forward and
-   backward kernels, must agree with it; a dispatch must not wait on the
-   card; then steps/s, one step's device time and the device-busy share,
-   with and without deterministic algorithms;
+   card, each step after the first a replay of the captured step graph.
+   The dual-output BCE kernel must run once a step and the loss must
+   fall; the same run repeated gives the same loss and parameter bits;
+   the run, and the same 20 steps as one-step dispatches, equal 20 eager
+   ``make_train_step_indexed`` steps from the same initial bits (every
+   step's loss, the parameters, Adam moments, count, step and the
+   generator's state, bit for bit); 5 steps with the plain BCE, and 5
+   with the first conv's forward and backward kernels, must agree with
+   it (K1/K1b twice a step, counted through replays); a dispatch must not
+   wait on the card; then steps/s, host and enqueue ms, one step's device
+   time and the device-busy share, graph and eager in turns, with and
+   without deterministic algorithms, with the capture and instantiate
+   times and the graph's pool; a steady graph dispatch is K graph
+   launches and no kernel launched from the step body, and its kernels
+   by name (torch.profiler) are the launches the wrappers counted;
 8. ckpt: full-width c2_gru_4bar checkpoints: 20 steps with a save every
    10 equal 10 steps restored from disk into a fresh state and 10 more,
    bit for bit; a truncated latest step falls back to the one before and
    is quarantined; the CLI trains, resumes, describes, evaluates (the
-   BCE kernel) and serves (the first-conv kernel) from the checkpoint;
-   save and restore times;
+   BCE kernel) and serves (the first-conv kernel: the two warm-up
+   sweeps, eager then captured, and the request's replay) from the
+   checkpoint; save and restore times;
 9. corpus: MIDI in → train → MIDI out through the CLI: 64 synthetic
    pieces of 32 bars written as .mid files with a label sidecar; the
    native parser must have built, and it and the pure-Python codec must
@@ -58,7 +73,9 @@ check does not hold:
    K1 at M=4 for a lone request and M=16 for a coalesced one; ``serve
    --port --coalesce 4 --reload-every 0.5 --max-requests`` in-process
    with 4 concurrent clients, a newer step saved and pushed mid-run
-   (``stats`` shows it, later answers are the new weights'); req/s and
+   (``stats`` shows it, later answers are the new weights'); a reload
+   pushed to a serial service serves from freshly captured graphs, bit
+   for bit the eager sweeps of the new weights; req/s and
    p50/p99 latency for stdin serial, ``--pipeline`` and ``--coalesce 4``
    and TCP with 4 clients; ``convert --to-safetensors`` then
    ``--from-safetensors`` serves the same bits;
@@ -68,15 +85,18 @@ check does not hold:
    ``train()`` on a seeded resident cache with labels (K4 a step, K1/K1b
    on each bar-feature conv or C1's encoder trunk, K2 an eval batch; the
    loss must fall; c4_cond repeated bit for bit), then steps/s, launches
-   and kernel time a step and the device-busy share; f32 on the card
+   and kernel time a step and the device-busy share, graph and eager; 5
+   graphed steps equal 5 eager ones bit for bit; f32 on the card
    against the CPU; 4 x 16 bars generated; 8 serve requests serial and
    ``--coalesce 4`` under the flip rule (c4_cond: half of them with chord
-   and key given, half drawn by the server); c3's ``generate --encode
+   and key given, half drawn by the server; the serial answers are graph
+   replays equal to eager sweeps); c3's ``generate --encode
    --interp-midi-b`` morph; convert to safetensors and back serves the
    same bits. Then c5_gen_sweep's registered 1,024 x 64-bar interpolation
-   sweep once (4 samples to MIDI), and K1, K1b, K2 and K4 at the kinds'
-   shapes (M = 2,048, 1,024 and C1's f32 M = 16; n = 25.2 M and 12.6 M)
-   against their plain versions, timed beside their bounds;
+   sweep three times, eager, captured, replayed, equal bit for bit, with
+   each run's peak memory (4 samples to MIDI), and K1, K1b, K2 and K4 at
+   the kinds' shapes (M = 2,048, 1,024 and C1's f32 M = 16; n = 25.2 M
+   and 12.6 M) against their plain versions, timed beside their bounds;
 12. patch_attn: the patch stem and the attention core at full registered
    width, the first-conv flag on (the patch stem ignores it: K1 and K1b
    must not launch): c2_trf (bf16, 64 x 4 bars, attention 2 x 8 heads at
@@ -84,14 +104,16 @@ check does not hold:
    (the patch stem with the GRU) each train 20 steps through ``train()``
    on a seeded resident cache (K4 a step, K2 an eval batch; the loss must
    fall; c2_trf repeated bit for bit), then steps/s, launches and kernel
-   time a step and the device-busy share; f32 on the card against the
+   time a step and the device-busy share, graph and eager; 5 graphed
+   steps equal 5 eager ones bit for bit; f32 on the card against the
    CPU; the f32 closed loop (4 x 8 bars, one reset) against the
    teacher-forced decode of its own bars, within 1e-4; 4 x 16 bars
    generated; 8 serve requests serial and ``--coalesce 4`` under the
    flip rule; ``convert --to-safetensors`` refuses c2_trf's checkpoint.
    Then c2_mxu_wide, c3_mxu, c2_mxu_16bar and c2_trf_32bar 5 steps each
-   (K4 a step), one 4 x 32-bar c2_trf_32bar sweep (a 32-position KV
-   cache), and K4 at the 16/32-bar configs' n = 6,291,456 against its
+   (K4 a step; 5 graphed steps equal 5 eager ones), one 4 x 32-bar
+   c2_trf_32bar sweep (a 32-position KV cache) eager, then captured and
+   replayed, bit for bit, and K4 at the 16/32-bar configs' n = 6,291,456 against its
    plain version, timed beside its bound. c2_trf and c3_trf must serve
    the same bits serial and --coalesce 4; c2_mxu is also served from its
    untrained init, which gives notes;
@@ -1336,10 +1358,15 @@ def serve_phase(seed: int, dev: torch.device):
         bar_ms = [held_ms(lambda: model.step(h, prev, z, reset),
                           spin_cycles=40_000_000) for prev in prevs]
     split["bar_device_ms"] = sum(bar_ms) / len(bar_ms)
-    split["device_busy_share"] = 16 * split["bar_device_ms"] / split[
-        "sweep_ms"]
-    log(f"serve request split: {split} (bar_device_ms: one bar's work on "
-        "the card with the host out of the way; the rest host clock)")
+    # the whole sweep's graph replay held the same way: the card's time
+    # for the sweep, the graph's own gaps included
+    split["sweep_device_ms"] = held_ms(
+        lambda: service.generate(torch.Generator(dev).manual_seed(seeds[0])),
+        spin_cycles=40_000_000)
+    split["device_busy_share"] = split["sweep_device_ms"] / split["sweep_ms"]
+    log(f"serve request split: {split} (bar_device_ms: one eager bar's "
+        "work on the card with the host out of the way, sweep_device_ms "
+        "the sweep graph's; the rest host clock)")
     check(exported == resp[0]["midi_b64"], "re-export differs")
     check(tuple(bars.shape) == (4, 16, 96, 128) and bars.dtype == torch.uint8,
           f"bars {tuple(bars.shape)} {bars.dtype}")
@@ -1376,7 +1403,74 @@ def serve_phase(seed: int, dev: torch.device):
                       "request_split": split,
                       "stock_conv_differ_cells": differ,
                       "stock_conv_total_cells": total,
-                      "stock_conv_first_bar_differ": first_bar_differ}
+                      "stock_conv_first_bar_differ": first_bar_differ,
+                      "graph": _serve_graph_checks(cfg, model, service,
+                                                   seeds, dev)}
+
+
+SERVE_TIMED = 8       # requests of each timed serve run, graph and eager
+
+
+def _serve_graph_checks(cfg, model, service, seeds, dev) -> dict:
+    """The served sweep's graphs against the eager sweep body on the same
+    generator states, with and without a seed bar, bit for bit; different
+    seeds give different bars; then p50 latency and req/s of stdin serial
+    serving, graphs and eager (``debug_mode``'s disable_jit) in turns."""
+    from musicvae_tpu_torch.cli import Service, serve_stream
+    from musicvae_tpu_torch.generate import sampler
+    from musicvae_tpu_torch.utils import debug_mode
+
+    body = sampler._sweep_body(cfg, model)
+    b = cfg.gen.num_samples
+    bar = service.generate(torch.Generator(dev).manual_seed(seeds[-1]))[
+        :, -1].contiguous()              # a generated bar as the seed bar
+    got = {}
+    for name, sb in (("plain", None), ("seeded", bar)):
+        got[name] = []
+        for s in seeds:
+            g = service.generate(torch.Generator(dev).manual_seed(s),
+                                 seed_bar=sb)
+            with torch.inference_mode():
+                want = body(b, torch.Generator(dev).manual_seed(s), sb,
+                            None, None, None, None)
+            check(torch.equal(g, want), f"serve graph vs eager ({name}, "
+                                        f"seed {s}): the bars differ")
+            got[name].append(g)
+        check(all(not torch.equal(got[name][0], x) for x in got[name][1:]),
+              f"serve ({name}): different seeds gave the same bars")
+    programs = service.generate.programs
+    check(len(programs) == 2 and all(p.program.graph is not None
+                                     for p in programs.values()),
+          f"serve: {len(programs)} sweep programs, not all captured")
+    lines = "".join(json.dumps({"id": i, "seed": seeds[0] + 50 + i}) + "\n"
+                    for i in range(SERVE_TIMED))
+    timing = {}
+    for name in ("graph", "eager", "eager_again", "graph_again"):
+        ctx = (contextlib.nullcontext() if name.startswith("graph")
+               else debug_mode(nans=False, disable_jit=True))
+        with ctx:
+            svc = Service(cfg, model)
+            svc.warm()
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve_stream(svc, io.StringIO(lines), out)
+            dt = time.perf_counter() - t0
+        resp = [json.loads(ln) for ln in out.getvalue().splitlines()]
+        check(len(resp) == SERVE_TIMED and all("midi_b64" in r
+                                                for r in resp),
+              f"serve timing {name}: {resp[:1]}")
+        timing[name] = _load_stats([r["latency_ms"] for r in resp],
+                                   len(resp), dt, float(np.mean(
+                                       [r["density"] for r in resp])))
+        timing[name]["graphed"] = _graphs_captured(svc.generate)
+        check(timing[name]["graphed"] == name.startswith("graph"),
+              f"serve timing {name}: graphed {timing[name]['graphed']}")
+        timing[name]["graph"] = _graph_info(svc.generate)
+    out = {"bits_equal_seeds": len(seeds), "seeded_and_plain": True,
+           "timing": timing}
+    log(f"serve graph vs eager: {out}")
+    return out
 
 
 def eval_phase(seed: int, dev: torch.device):
@@ -1525,12 +1619,107 @@ LOSS_TOL_CONV1 = 1e-2    # first-conv kernels vs cuDNN, 5 steps: bf16
 GRAD_NORM_TOL = 0.05     # bf16 step's grad_norm vs the f32 step's
 
 
+def _resident(ds, dev, cond: bool = False) -> dict:
+    """A dataset's resident tensors on the card, as ``train()`` uploads
+    them (with the window labels for cond)."""
+    data = {"bars": torch.from_numpy(ds.bars).to(dev),
+            "starts": torch.from_numpy(ds.starts).to(dev)}
+    if cond:
+        data["chords"] = torch.from_numpy(ds.chords).to(dev)
+        data["keys"] = torch.from_numpy(ds.keys).to(dev)
+    return data
+
+
+def _rng_equal(a, b) -> bool:
+    return torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+def _graph_info(fn) -> list:
+    """capture_ms, instantiate_ms and pool_bytes of each program a graphed
+    function holds (utils/graphs.py ``Program.info``)."""
+    return [p.program.info for p in fn.programs.values()]
+
+
+def _graphs_captured(fn) -> bool:
+    return bool(fn.programs) and all(p.program.graph is not None
+                                     for p in fn.programs.values())
+
+
+def _graph_vs_eager_steps(cfg, ds, dev, seed: int, steps: int) -> dict:
+    """``steps`` steps of one ``make_train_step_indexed_multi`` dispatch
+    (the first eager, then the captured graph's replays) against as many
+    eager ``make_train_step_indexed`` calls, each from ``create_state``'s
+    bits, on the same window ids, under deterministic algorithms: the last
+    step's metrics, the state's bits (params, moments, count, step, EMA)
+    and the generator's state must be equal."""
+    from musicvae_tpu_torch.train import trainer
+
+    data = _resident(ds, dev, cfg.model.kind == "cond")
+    ids = trainer.make_id_schedule(seed, len(ds), cfg.train.batch_size)
+    idxs = torch.from_numpy(np.stack([ids(j) for j in range(steps)])).to(dev)
+    model_g, state_g = trainer.create_state(cfg, device=dev)
+    model_e, state_e = trainer.create_state(cfg, device=dev)
+    multi = trainer.make_train_step_indexed_multi(cfg, model_g)
+    single = trainer.make_train_step_indexed(cfg, model_e)
+    with trainer.deterministic_algorithms():
+        _, m_g = multi(state_g, data, idxs)
+        for j in range(steps):
+            _, m_e = single(state_e, data, idxs[j])
+    torch.cuda.synchronize()
+    same = (all(torch.equal(m_g[k], m_e[k]) for k in m_e)
+            and all(torch.equal(a, b) for a, b in zip(
+                _state_bits(state_g), _state_bits(state_e)))
+            and _rng_equal(state_g, state_e))
+    out = {"steps": steps, "bits_equal": same,
+           "graphed": _graphs_captured(multi), "graph": _graph_info(multi),
+           "loss": float(m_g["loss"])}
+    check(out["graphed"], f"{cfg.name}: the dispatch captured no graph")
+    check(same, f"{cfg.name}: {steps} graph steps differ from eager ones: "
+                f"loss {float(m_g['loss'])!r} vs {float(m_e['loss'])!r}")
+    return out
+
+
+def _dispatch_trace(fn, attempts: int = 3):
+    """(host runtime calls by name, device kernels by name with their
+    counts, the summed kernel time in ms) of one call of ``fn``, from
+    torch.profiler (``profiled_kernels``' sums); a trace with no device
+    time (CUPTI drops one now and then) is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.device_time_total > 0]
+        if device:
+            calls = {e.key: e.count for e in events
+                     if e.device_type == torch.autograd.DeviceType.CPU
+                     and e.key.startswith("cuda")}
+            return (calls, {e.key: e.count for e in device},
+                    sum(e.device_time_total for e in device) / 1e3)
+    check(False, f"torch.profiler recorded no device time in {attempts} "
+                 f"traces")
+
+
+def _runtime_calls(calls: dict, prefix: str) -> int:
+    return sum(n for k, n in calls.items() if k.startswith(prefix))
+
+
+def _kernel_calls(kernels: dict, name: str) -> int:
+    return sum(n for k, n in kernels.items() if name in k)
+
+
 def train_phase(seed: int, dev: torch.device):
     """Full-width c2_gru_4bar in bf16, batch 64, through ``train()`` on a
     resident seeded bar cache; see the module docstring's phase 7."""
     from musicvae_tpu_torch.config import get_config
     from musicvae_tpu_torch.ops import _kernels
     from musicvae_tpu_torch.train import trainer
+    from musicvae_tpu_torch.utils import debug_mode
 
     base = get_config("c2_gru_4bar")
     tspec = dataclasses.replace(
@@ -1553,10 +1742,10 @@ def train_phase(seed: int, dev: torch.device):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         check(int(state.step) == steps, f"state.step {int(state.step)}")
-        return model, logged, dict(_kernels.LAUNCHES), dt
+        return model, state, logged, dict(_kernels.LAUNCHES), dt
 
-    model_a, logged_a, launches, dt_a = run(cfg, TRAIN_STEPS)
-    model_b, logged_b, launches_b, _ = run(cfg, TRAIN_STEPS)
+    model_a, state_a, logged_a, launches, dt_a = run(cfg, TRAIN_STEPS)
+    model_b, _, logged_b, launches_b, _ = run(cfg, TRAIN_STEPS)
     steps_logged = [m for _, m in logged_a if "loss" in m]
     evals_logged = [m for _, m in logged_a if "eval_loss" in m]
     losses_a = [m["loss"] for m in steps_logged]
@@ -1587,11 +1776,50 @@ def train_phase(seed: int, dev: torch.device):
         f"{same_loss}, same parameter bits {same_params}")
     check(same_loss and same_params and launches == launches_b,
           "a repeated run from the same seed differs")
+    del model_b
+
+    # graph against eager: train()'s graphed run against 20 eager single
+    # steps from the same initial bits and window ids, and the same 20
+    # steps as dispatches of one step each (a loss a step, replays from
+    # the second on)
+    data_dev = _resident(train_ds, dev)
+    ids = trainer.make_id_schedule(seed, len(train_ds), 64)
+    step_ids = torch.from_numpy(np.stack([ids(s) for s in range(
+        TRAIN_STEPS)])).to(dev)
+    model_e, state_e = trainer.create_state(cfg, device=dev)
+    single = trainer.make_train_step_indexed(cfg, model_e)
+    model_g, state_g = trainer.create_state(cfg, device=dev)
+    multi_1 = trainer.make_train_step_indexed_multi(cfg, model_g)
+    eager_losses, graph_losses = [], []
+    with trainer.deterministic_algorithms():
+        for s in range(TRAIN_STEPS):
+            eager_losses.append(single(state_e, data_dev, step_ids[s])[1][
+                "loss"])
+            graph_losses.append(multi_1(state_g, data_dev,
+                                        step_ids[s:s + 1])[1]["loss"])
+    eager_losses = [float(v) for v in eager_losses]
+    graph_losses = [float(v) for v in graph_losses]
+    bits_e = _state_bits(state_e)
+    graph_eager = {
+        "loss_sequence_equal": graph_losses == eager_losses,
+        "train_logged_losses_equal": losses_a == eager_losses[
+            TRAIN_K - 1::TRAIN_K],
+        "train_state_bits_equal": all(torch.equal(a, b) for a, b in zip(
+            _state_bits(state_a), bits_e)),
+        "train_generator_equal": _rng_equal(state_a, state_e),
+        "one_step_dispatches_state_bits_equal": all(
+            torch.equal(a, b) for a, b in zip(_state_bits(state_g), bits_e)),
+        "one_step_dispatches_generator_equal": _rng_equal(state_g, state_e),
+        "graphed": _graphs_captured(multi_1), "eager_losses": eager_losses}
+    log(f"train graph vs eager, {TRAIN_STEPS} steps: {graph_eager}")
+    check(all(v for k, v in graph_eager.items() if k != "eager_losses"),
+          f"graph and eager training differ: {graph_eager}")
+    del model_e, state_e, model_g, state_g, multi_1, state_a
 
     # the same 5 steps with the plain BCE under autograd
     plain_cfg = cfg.replace(train=dataclasses.replace(
         tspec, use_pallas_loss=False))
-    _, logged_p, launches_p, _ = run(plain_cfg, TRAIN_K)
+    _, _, logged_p, launches_p, _ = run(plain_cfg, TRAIN_K)
     check(launches_p["masked_bce_sum_dual"] == 0, "plain run launched K4")
     rel_plain = abs(logged_p[0][1]["loss"] - losses_a[0]) / losses_a[0]
     log(f"train step {TRAIN_K}: kernel loss {losses_a[0]}, plain-BCE loss "
@@ -1602,7 +1830,7 @@ def train_phase(seed: int, dev: torch.device):
     # the same 5 steps with the first conv through its kernels
     conv_cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, use_pallas_conv1=True))
-    _, logged_c, launches_c, _ = run(conv_cfg, TRAIN_K)
+    _, _, logged_c, launches_c, _ = run(conv_cfg, TRAIN_K)
     rel_conv = abs(logged_c[0][1]["loss"] - losses_a[0]) / losses_a[0]
     log(f"train conv1 launches ({TRAIN_K} steps): {launches_c}")
     log(f"train step {TRAIN_K}: first-conv kernels loss "
@@ -1615,23 +1843,22 @@ def train_phase(seed: int, dev: torch.device):
     check(rel_conv <= LOSS_TOL_CONV1, f"first-conv kernels and stock conv "
                                       f"disagree (rel {rel_conv:.2e})")
 
-    # dispatches by hand: no hidden host wait, then timings
-    def fresh(cfg):
-        model, state = trainer.create_state(cfg, device=dev)
-        return state, trainer.make_train_step_indexed_multi(cfg, model)
-
-    data_dev = {"bars": torch.from_numpy(train_ds.bars).to(dev),
-                "starts": torch.from_numpy(train_ds.starts).to(dev)}
-    ids = trainer.make_id_schedule(seed, len(train_ds), 64)
+    # dispatches by hand: no hidden host wait, then timings, graph and
+    # eager (debug_mode's disable_jit) in turns
     n_disp = 8
-    idxs = [torch.from_numpy(np.stack([ids(d * TRAIN_K + j) for j in
-                                       range(TRAIN_K)])).to(dev)
-            for d in range(n_disp)]
+    idxs = [step_ids[:TRAIN_K]] + [
+        torch.from_numpy(np.stack([ids(d * TRAIN_K + j) for j in
+                                   range(TRAIN_K)])).to(dev)
+        for d in range(1, n_disp)]
 
-    def timed(cfg, deterministic):
-        state, multi = fresh(cfg)
-        ctx = (trainer.deterministic_algorithms() if deterministic
-               else contextlib.nullcontext())
+    def timed(cfg, deterministic, graph):
+        model, state = trainer.create_state(cfg, device=dev)
+        multi = trainer.make_train_step_indexed_multi(cfg, model)
+        ctx = contextlib.ExitStack()
+        if deterministic:
+            ctx.enter_context(trainer.deterministic_algorithms())
+        if not graph:
+            ctx.enter_context(debug_mode(nans=False, disable_jit=True))
         with ctx:
             multi(state, data_dev, idxs[0])                  # warm-up
             multi(state, data_dev, idxs[1])
@@ -1655,18 +1882,43 @@ def train_phase(seed: int, dev: torch.device):
             step_ms = [held_ms(lambda: single(state, data_dev, idxs[0][j]),
                                spin_cycles=150_000_000, strict=False)
                        for j in range(TRAIN_K)]
-            kernels, kernel_ms = profiled_kernels(
+            # a graph dispatch held behind the spin: the card's time for
+            # its steps, the gaps between the graph's kernels included
+            dispatch_ms = (held_ms(lambda: multi(state, data_dev, idxs[0]),
+                                   spin_cycles=150_000_000, strict=False)
+                           if graph else None)
+            before = dict(_kernels.LAUNCHES)
+            calls, names, kernel_ms = _dispatch_trace(
                 lambda: multi(state, data_dev, idxs[0]))
+            counted = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+            kernels = sum(names.values())
         held = [v for v in step_ms if v is not None]
-        return {"steps_per_s": steps / host,
-                "host_ms_per_step": host / steps * 1e3,
-                "enqueue_ms_per_step": enqueue / steps * 1e3,
-                "events_ms_per_step": start.elapsed_time(end) / steps,
-                "device_ms_per_step": kernel_ms / TRAIN_K,
-                "kernels_per_step": kernels / TRAIN_K,
-                "held_device_ms_per_step": (sum(held) / len(held) if held
-                                            else None),
-                "steps_held": len(held), "loss": float(m["loss"])}
+        out = {"steps_per_s": steps / host,
+               "host_ms_per_step": host / steps * 1e3,
+               "enqueue_ms_per_step": enqueue / steps * 1e3,
+               "events_ms_per_step": start.elapsed_time(end) / steps,
+               "device_ms_per_step": kernel_ms / TRAIN_K,
+               "kernels_per_step": kernels / TRAIN_K,
+               "held_device_ms_per_step": (sum(held) / len(held) if held
+                                           else None),
+               "held_dispatch_ms_per_step": (None if dispatch_ms is None
+                                             else dispatch_ms / TRAIN_K),
+               "steps_held": len(held), "loss": float(m["loss"]),
+               "graphed": _graphs_captured(multi),
+               "graph": _graph_info(multi),
+               "dispatch": {
+                   "graph_launches": _runtime_calls(calls,
+                                                    "cudaGraphLaunch"),
+                   "kernel_launches": _runtime_calls(calls,
+                                                     "cudaLaunchKernel"),
+                   "memcpy": _runtime_calls(calls, "cudaMemcpy"),
+                   "k4_kernels": _kernel_calls(names, "bce_sum<"),
+                   "k1_kernels": _kernel_calls(names, "conv1_kernel"),
+                   "k1b_kernels": _kernel_calls(names, "conv1_bwd_kernel"),
+                   "counted": {k: v for k, v in counted.items() if v}}}
+        check(out["graphed"] == graph, f"graphed {out['graphed']}, asked "
+                                       f"{graph}")
+        return out
 
     # every option of the step that adds device work, to show that none of
     # them waits on the card or lacks a deterministic algorithm
@@ -1677,13 +1929,15 @@ def train_phase(seed: int, dev: torch.device):
         beta_schedule="cyclical", beta_cycle_steps=100,
         beta_warmup_steps=50))
     timings = {}
-    for name, c, det in (("deterministic", cfg, True),
-                         ("default_algorithms", cfg, False),
-                         ("default_algorithms_again", cfg, False),
-                         ("deterministic_again", cfg, True),
-                         ("conv1_kernels_deterministic", conv_cfg, True),
-                         ("every_option_deterministic", options_cfg, True)):
-        t = timed(c, det)
+    for name, c, det, graph in (
+            ("graph", cfg, True, True), ("eager", cfg, True, False),
+            ("eager_again", cfg, True, False),
+            ("graph_again", cfg, True, True),
+            ("graph_default_algorithms", cfg, False, True),
+            ("conv1_kernels_graph", conv_cfg, True, True),
+            ("conv1_kernels_eager", conv_cfg, True, False),
+            ("every_option_graph", options_cfg, True, True)):
+        t = timed(c, det, graph)
         t["device_busy_share"] = (t["device_ms_per_step"]
                                   / t["host_ms_per_step"])
         timings[name] = t
@@ -1692,12 +1946,42 @@ def train_phase(seed: int, dev: torch.device):
         f"{(n_disp - 2) * TRAIN_K} steps in {n_disp - 2} dispatches, no "
         "host wait inside (sync debug mode 'error'); device_ms_per_step is "
         "the sum of torch.profiler's kernel times over one dispatch, per "
-        "step; held_device_ms_per_step is one step's work on the card with "
-        "the host out of the way (a spin holds the stream while the host "
-        "enqueues the step; None where a step has more launches than the "
-        "launch queue holds); events_ms_per_step is CUDA events around the "
-        "dispatches, host gaps included; device_busy_share is "
-        "device_ms_per_step over host_ms_per_step")
+        "step; held_device_ms_per_step is one eager step's work on the "
+        "card with the host out of the way (a spin holds the stream while "
+        "the host enqueues the step; None where a step has more launches "
+        "than the launch queue holds); held_dispatch_ms_per_step the same "
+        "for a graph dispatch (the card's time with the graph's own gaps); "
+        "events_ms_per_step is CUDA events around the dispatches, host "
+        "gaps included; device_busy_share is device_ms_per_step over "
+        "host_ms_per_step; graph: the step graph's capture_ms, "
+        "instantiate_ms (host clock) and pool_bytes (memory reserved "
+        "during the capture); dispatch: one steady dispatch's runtime "
+        "calls and kernels by name (torch.profiler) and the launch counts "
+        "the wrappers added for it")
+    for name, t in timings.items():
+        d = t["dispatch"]
+        if t["graphed"]:
+            # K replays, no kernel launched from the step body by the
+            # host: what cudaLaunchKernel remains is each replay's
+            # generator set-up (two fills a registered generator) and the
+            # metrics' copies after the last step
+            check(d["graph_launches"] == TRAIN_K
+                  and d["kernel_launches"] <= 4 * TRAIN_K + 8,
+                  f"{name}: a steady graph dispatch made "
+                  f"{d['graph_launches']} graph launches and "
+                  f"{d['kernel_launches']} kernel launches")
+        else:
+            check(d["graph_launches"] == 0, f"{name}: eager dispatch "
+                                            f"launched a graph")
+        conv1 = name.startswith("conv1")
+        check(d["k4_kernels"] == TRAIN_K
+              and d["k1_kernels"] == (2 * TRAIN_K if conv1 else 0)
+              and d["k1b_kernels"] == (2 * TRAIN_K if conv1 else 0)
+              and d["counted"].get("masked_bce_sum_dual") == TRAIN_K
+              and d["counted"].get("first_conv_s2", 0) == d["k1_kernels"]
+              and d["counted"].get("first_conv_s2_bwd", 0)
+              == d["k1b_kernels"],
+              f"{name}: the profiler's kernels and the counts disagree: {d}")
 
     # bf16 against f32 on one step from the same weights, batch and noise
     norms = {}
@@ -1718,6 +2002,7 @@ def train_phase(seed: int, dev: torch.device):
     return ({"train": launches, "train_conv1": launches_c},
             {"logged": logged_a, "seconds_with_startup": dt_a,
              "repeat_same_bits": same_loss and same_params,
+             "graph_vs_eager": graph_eager,
              "plain_bce_rel": rel_plain, "conv1_rel": rel_conv,
              "timings": timings, "grad_norm": norms})
 
@@ -1902,8 +2187,9 @@ def ckpt_phase(seed: int, dev: torch.device, card: str):
             check(rc == 0 and len(resp.get("midi_b64", [])) == 4,
                   f"CLI serve (ema {ema}): rc {rc}, {o[:300]}: "
                   f"{e[-2000:]}")
-            # the warm-up sweep and the request, 16 bars each
-            check(launches["first_conv_s2"] == 32,
+            # the two warm-up sweeps (eager, then the captured graph's
+            # replay) and the request's replay, 16 bars each
+            check(launches["first_conv_s2"] == 48,
                   f"CLI serve (ema {ema}): K1 launches {launches}")
             ready = [ln for ln in e.splitlines() if ln.startswith("serving")]
             check(len(ready) == 1 and ("EMA weights" in ready[0]) == ema,
@@ -2578,6 +2864,41 @@ def serve_stack_phase(seed: int, dev: torch.device, card: str):
               f"TCP: K1 calls {len(tcp_m)} at Ms {ms_set}")
         out["tcp"] = tcp
 
+        # (b') a reload pushed to a serial service (the stdin "reload"
+        # command): the new weights serve from graphs of their own,
+        # captured at their first requests, equal to eager sweeps
+        svc_r = cli.Service(cfg, svc.model, 1)
+        svc_r.reload_once = cli._make_reload_once(ckpt_io.make_manager(ck),
+                                                  svc_r)
+        svc_r.warm()
+        before_gen = svc_r.generate
+        r_seeds = [seed * 1000 + 300 + i for i in range(5)]
+        lines = [json.dumps({"id": i, "seed": s})
+                 for i, s in enumerate(r_seeds[:2])]
+        lines.append(json.dumps({"id": "r", "cmd": "reload"}))
+        lines += [json.dumps({"id": 2 + i, "seed": s})
+                  for i, s in enumerate(r_seeds[2:])]
+        o_r = io.StringIO()
+        cli.serve_stream(svc_r, io.StringIO("\n".join(lines) + "\n"), o_r)
+        resp_r = [json.loads(ln) for ln in o_r.getvalue().splitlines()]
+        check(len(resp_r) == 6 and resp_r[2].get("reloaded") == 2
+              and svc_r.step == 2, f"serial push reload: {resp_r[2]}")
+        fresh = (svc_r.generate is not before_gen
+                 and _graphs_captured(svc_r.generate)
+                 and _graphs_captured(before_gen))
+        same_r = all(np.array_equal(
+            _midi_bars(r["midi_b64"], cfg),
+            _serial_reference(cfg, svc.model if i < 2 else step2.model, dev,
+                              s, None)[0])
+            for i, (r, s) in enumerate(zip(resp_r[:2] + resp_r[3:],
+                                           r_seeds)))
+        out["serial_reload"] = {"fresh_graphs": fresh,
+                                "graph_equals_eager": same_r,
+                                "graphs": _graph_info(svc_r.generate)}
+        log(f"serve_stack (b') serial push reload: {out['serial_reload']}")
+        check(fresh and same_r, f"serial reload: {out['serial_reload']}")
+        del svc_r, before_gen
+
         # (c) throughput and latency by transport, step-2 weights
         load_seeds = [seed * 1000 + 500 + i
                       for i in range(STACK_CLIENTS * STACK_PER_CLIENT)]
@@ -2642,6 +2963,7 @@ KIND_STEPS = 20
 KIND_K = 5
 KIND_DISPATCHES = 3      # timed dispatches of KIND_K steps a kind
 KIND_REQUESTS = 8        # serve requests a kind, serial and --coalesce 4
+GRAPH_STEPS = 5          # steps a config's graph is held to eager steps
 SWEEP_MIDIS = 4          # c5_gen_sweep samples exported to MIDI
 
 
@@ -2725,25 +3047,33 @@ def _kind_train(cfg, train_ds, eval_ds, dev, steps: int = KIND_STEPS):
     return model, state, logged, dict(_kernels.LAUNCHES), dt
 
 
-def _kind_timing(cfg, state, train_ds, dev, seed: int) -> dict:
+def _fresh_state(cfg, dev):
+    from musicvae_tpu_torch.train import trainer
+
+    return trainer.create_state(cfg, device=dev)[1]
+
+
+def _kind_timing(cfg, state, train_ds, dev, seed: int,
+                 graph: bool = True) -> dict:
     """Steps/s by host clock over KIND_DISPATCHES dispatches of KIND_K
     steps (no host wait inside: sync debug mode "error"), then one
     dispatch's kernels from torch.profiler: launches and device time a
-    step, and the device-busy share (device time over host time)."""
+    step, and the device-busy share (device time over host time).
+    ``graph`` False: the same dispatches eagerly (``debug_mode``'s
+    disable_jit)."""
     from musicvae_tpu_torch.train import trainer
+    from musicvae_tpu_torch.utils import debug_mode
 
-    data_dev = {"bars": torch.from_numpy(train_ds.bars).to(dev),
-                "starts": torch.from_numpy(train_ds.starts).to(dev)}
-    if cfg.model.kind == "cond":
-        data_dev["chords"] = torch.from_numpy(train_ds.chords).to(dev)
-        data_dev["keys"] = torch.from_numpy(train_ds.keys).to(dev)
+    data_dev = _resident(train_ds, dev, cfg.model.kind == "cond")
     b = cfg.train.batch_size
     ids = trainer.make_id_schedule(seed, len(train_ds), b)
     idxs = [torch.from_numpy(np.stack([ids(d * KIND_K + j)
                                        for j in range(KIND_K)])).to(dev)
             for d in range(KIND_DISPATCHES + 1)]
     multi = trainer.make_train_step_indexed_multi(cfg, state.model)
-    with trainer.deterministic_algorithms():
+    eager = (contextlib.nullcontext() if graph
+             else debug_mode(nans=False, disable_jit=True))
+    with trainer.deterministic_algorithms(), eager:
         multi(state, data_dev, idxs[0])                      # warm-up
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -2764,7 +3094,10 @@ def _kind_timing(cfg, state, train_ds, dev, seed: int) -> dict:
            "enqueue_ms_per_step": enqueue / steps * 1e3,
            "device_ms_per_step": kernel_ms / KIND_K,
            "kernels_per_step": kernels / KIND_K,
-           "loss": float(m["loss"])}
+           "loss": float(m["loss"]), "graphed": _graphs_captured(multi),
+           "graph": _graph_info(multi)}
+    check(out["graphed"] == graph, f"{cfg.name} timing: graphed "
+                                   f"{out['graphed']}, asked {graph}")
     out["device_busy_share"] = (out["device_ms_per_step"]
                                 / out["host_ms_per_step"])
     check(np.isfinite(out["loss"]), f"timed dispatches: loss {out['loss']}")
@@ -2804,6 +3137,10 @@ def _kind_serve(name, cfg, model, dev, seed) -> dict:
         timing[mode] = _load_stats([r["latency_ms"] for r in resp],
                                    len(resp), dt, float(np.mean(
                                        [r["density"] for r in resp])))
+    # the serial sweeps are replays of the graphs svc.warm() captured,
+    # the references eager sweeps: equal bit for bit
+    check(_graphs_captured(svc.generate), f"{name}: serial serving "
+                                          f"captured no sweep graph")
     check(all(np.array_equal(a, r[0]) for a, r in zip(got["serial"], refs)),
           f"{name}: serial serving differs from the lone sweep")
     agree = _agree(got["coalesce4"], refs, thr)
@@ -2813,7 +3150,8 @@ def _kind_serve(name, cfg, model, dev, seed) -> dict:
     bits_equal = all(np.array_equal(a, b) for a, b in zip(
         got["coalesce4"], got["serial"]))
     return {"timing": timing, "coalesce_vs_serial": agree,
-            "bits_equal": bits_equal}
+            "bits_equal": bits_equal, "serial_graph_equals_eager": True,
+            "sweep_graphs": _graph_info(svc.generate)}
 
 
 def _kind_convert(name, cfg, ck, root, seed) -> dict:
@@ -3112,6 +3450,16 @@ def kinds_phase(seed: int, dev: torch.device, card: str):
                                wait=True), f"{name}: not saved")
             res["timing"] = _kind_timing(cfg, state, train_ds, dev, seed)
             log(f"kinds {name} train timing ({card}): {res['timing']}")
+            # on a fresh state: the trained one is served below, as it
+            # stands after the graph timing's steps
+            res["timing_eager"] = _kind_timing(cfg, _fresh_state(cfg, dev),
+                                               train_ds, dev, seed,
+                                               graph=False)
+            log(f"kinds {name} train timing, eager ({card}): "
+                f"{res['timing_eager']}")
+            res["graph_vs_eager"] = _graph_vs_eager_steps(
+                cfg, train_ds, dev, seed, GRAPH_STEPS)
+            log(f"kinds {name} graph vs eager: {res['graph_vs_eager']}")
             res["reference"] = reference_check(seed, dev, name)
 
             gcfg = cfg.replace(gen=GenSpec(num_bars=GEN_BARS,
@@ -3154,34 +3502,53 @@ def kinds_phase(seed: int, dev: torch.device, card: str):
             out[name] = res
             del model, state
 
-        # c5_gen_sweep: 1,024 samples x 64 bars, interpolation, once
+        # c5_gen_sweep: 1,024 samples x 64 bars, interpolation: the first
+        # call eager, the second captured and replayed, the third a replay
         c5 = get_config("c5_gen_sweep")
         c5 = c5.replace(model=dataclasses.replace(c5.model,
                                                   use_pallas_conv1=True))
         model = build_model(c5, device=dev, seed=seed)
         sweep = sampler.make_generate_fn(c5, model)
-        _kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bars = sweep(sampler.seed_generator(seed, dev))
-        torch.cuda.synchronize()
-        sweep_s = time.perf_counter() - t0
-        sweep_launches = dict(_kernels.LAUNCHES)
-        counted(sweep_launches)
+        runs5 = {}
+        for run in ("eager", "graph_capture", "graph_replay"):
+            _kernels.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            bars = sweep(sampler.seed_generator(seed, dev))
+            torch.cuda.synchronize()
+            runs5[run] = {
+                "seconds": time.perf_counter() - t0,
+                "peak_bytes_above_held": torch.cuda.max_memory_allocated(dev)
+                - held, "launches": dict(_kernels.LAUNCHES),
+                "bars": bars}
+            counted(runs5[run]["launches"])
+            check(tuple(bars.shape) == (1024, 64, 96, 128)
+                  and runs5[run]["launches"]["first_conv_s2"] == 64,
+                  f"c5 sweep ({run}) {tuple(bars.shape)}, launches "
+                  f"{runs5[run]['launches']}")
+        same = all(torch.equal(runs5["eager"]["bars"], runs5[r]["bars"])
+                   for r in ("graph_capture", "graph_replay"))
+        check(same and _graphs_captured(sweep),
+              "c5 sweep: the graph's bars differ from the eager sweep's")
+        sweep_s = runs5["graph_replay"]["seconds"]
+        sweep_launches = runs5["graph_replay"]["launches"]
+        bars = runs5["graph_replay"]["bars"]
+        for r in runs5.values():
+            del r["bars"]
         t0 = time.perf_counter()
         exported = [sampler.bars_to_midi(bars[i].cpu().numpy(), c5)
                     for i in range(SWEEP_MIDIS)]
         export_s = time.perf_counter() - t0
-        check(tuple(bars.shape) == (1024, 64, 96, 128)
-              and sweep_launches["first_conv_s2"] == 64,
-              f"c5 sweep {tuple(bars.shape)}, launches {sweep_launches}")
         out["c5_gen_sweep"] = {
             "samples": 1024, "bars": 64, "seconds": sweep_s,
             "bars_per_s": 1024 * 64 / sweep_s,
             "export_seconds_4_samples": export_s,
             "midi_bytes": [len(m) for m in exported],
             "density": float(bars.float().mean()),
-            "launches": sweep_launches}
+            "launches": sweep_launches, "graph_equals_eager": same,
+            "runs": runs5, "graph": _graph_info(sweep)}
         log(f"kinds c5_gen_sweep ({card}): {out['c5_gen_sweep']}")
         del bars, model
         torch.cuda.empty_cache()
@@ -3316,6 +3683,17 @@ def patch_attn_phase(seed: int, dev: torch.device, card: str):
                                wait=True), f"{name}: not saved")
             res["timing"] = _kind_timing(cfg, state, train_ds, dev, seed)
             log(f"patch_attn {name} train timing ({card}): {res['timing']}")
+            # on a fresh state: the trained one is served below, as it
+            # stands after the graph timing's steps
+            res["timing_eager"] = _kind_timing(cfg, _fresh_state(cfg, dev),
+                                               train_ds, dev, seed,
+                                               graph=False)
+            log(f"patch_attn {name} train timing, eager ({card}): "
+                f"{res['timing_eager']}")
+            res["graph_vs_eager"] = _graph_vs_eager_steps(
+                cfg, train_ds, dev, seed, GRAPH_STEPS)
+            log(f"patch_attn {name} graph vs eager: "
+                f"{res['graph_vs_eager']}")
             res["reference"] = reference_check(seed, dev, name)
             res["closed_loop"] = _closed_loop_vs_teacher(name, seed, dev)
 
@@ -3385,18 +3763,29 @@ def patch_attn_phase(seed: int, dev: torch.device, card: str):
             res = {"batch": cfg.train.batch_size, "num_bars": nb,
                    "loss": loss[0], "train_launches": launches,
                    "train_seconds_with_startup": dt}
+            res["graph_vs_eager"] = _graph_vs_eager_steps(
+                cfg, _kind_cache(seed, nb), dev, seed, GRAPH_STEPS)
             if name == "c2_trf_32bar":
+                # eager, then captured and replayed, then a replay
                 gcfg = cfg.replace(gen=GenSpec(num_bars=nb,
                                                num_samples=GEN_SAMPLES))
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                bars = sampler.make_generate_fn(gcfg, model)(
-                    sampler.seed_generator(seed, dev))
-                torch.cuda.synchronize()
+                sweep = sampler.make_generate_fn(gcfg, model)
+                swept = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    bars = sweep(sampler.seed_generator(seed, dev))
+                    torch.cuda.synchronize()
+                    swept.append((time.perf_counter() - t0, bars))
                 check(tuple(bars.shape) == (GEN_SAMPLES, nb, 96, 128),
                       f"{name}: swept {tuple(bars.shape)}")
+                check(_graphs_captured(sweep) and all(
+                    torch.equal(swept[0][1], b) for _, b in swept[1:]),
+                      f"{name}: the sweep's graph differs from eager")
                 res["sweep"] = {"samples": GEN_SAMPLES, "bars": nb,
-                                "seconds": time.perf_counter() - t0,
+                                "seconds": swept[0][0],
+                                "seconds_graph": [t for t, _ in swept[1:]],
+                                "graph_equals_eager": True,
                                 "density": float(bars.float().mean())}
             res["seconds"] = time.perf_counter() - t_name
             log(f"patch_attn {name} ({card}): {res}")
@@ -4222,12 +4611,14 @@ def _column_hook_cost(seed: int, ds, dev: torch.device, steps: int = 10):
     """What the column-parallel hooks of models/layers.py cost a model
     that is not sharded: the calls of ``column_in``, ``column_out`` and
     ``shard_of`` a step of one process (counted over ``steps`` f32 steps
-    of ``_tp_train``), the host time of one call on a replicated layer
-    (100,000 calls, less an empty call's time), and their product a step
-    beside that run's host time a step."""
+    of ``_tp_train``, run eagerly: a replayed graph runs no Python, so
+    the hooks cost a graphed step nothing), the host time of one call on
+    a replicated layer (100,000 calls, less an empty call's time), and
+    their product a step beside that eager run's host time a step."""
     import timeit
 
     from musicvae_tpu_torch.models import layers
+    from musicvae_tpu_torch.utils import debug_mode
 
     names = ("column_in", "column_out", "shard_of")
     saved = {n: getattr(layers, n) for n in names}
@@ -4242,7 +4633,9 @@ def _column_hook_cost(seed: int, ds, dev: torch.device, steps: int = 10):
     for n in names:
         setattr(layers, n, counting(n))
     try:
-        run = _tp_train(_tp_config(seed, "float32", False, steps), ds, dev)
+        with debug_mode(nans=False, disable_jit=True):
+            run = _tp_train(_tp_config(seed, "float32", False, steps), ds,
+                            dev)
     finally:
         for n in names:
             setattr(layers, n, saved[n])
@@ -4418,8 +4811,9 @@ def tp_phase(seed: int, dev: torch.device, card: str):
         resp = json.loads(o.splitlines()[0]) if o else {}
         check(rc == 0 and len(resp.get("midi_b64", [])) == 4,
               f"serve of the TP checkpoint: rc {rc}, {o[:300]}: {e[-2000:]}")
-        # the warm-up sweep and the request, 16 bars each
-        check(runs["tp_serve"]["first_conv_s2"] == 32,
+        # the two warm-up sweeps (eager, then the captured graph's replay)
+        # and the request's replay, 16 bars each
+        check(runs["tp_serve"]["first_conv_s2"] == 48,
               f"serve of the TP checkpoint: launches {runs['tp_serve']}")
         out["restored"]["served_density"] = resp["density"]
         log(f"tp checkpoint restored and served ({card}): {out['restored']}")
@@ -4569,31 +4963,47 @@ def main() -> int:
                     exist_ok=True)
     card = header()
     details, runs, entries = {}, {}, []
+    t_run, starts = time.perf_counter(), {}
+
+    def mark(phase):
+        starts[phase] = round(time.perf_counter() - t_run, 1)
+        log(f"phase {phase} starts at {starts[phase]} s")
+
     if "kernels" in only:
+        mark("kernels")
         entries, details["kernel_checks"] = kernel_checks(args.seed, dev)
     if "reference" in only:
+        mark("reference")
         details["reference"] = reference_check(args.seed, dev)
     if "serve" in only:
+        mark("serve")
         runs["serve"], details["serve"] = serve_phase(args.seed, dev)
     if "eval" in only:
+        mark("eval")
         runs["eval"], details["eval"] = eval_phase(args.seed, dev)
     if "fused_elbo" in only:
+        mark("fused_elbo")
         runs["fused_elbo"], details["fused_elbo"] = fused_elbo_phase(
             args.seed, dev)
     if "train" in only:
+        mark("train")
         train_runs, details["train"] = train_phase(args.seed, dev)
         runs.update(train_runs)
     if "ckpt" in only:
+        mark("ckpt")
         ckpt_runs, details["ckpt"] = ckpt_phase(args.seed, dev, card)
         runs.update(ckpt_runs)
     if "corpus" in only:
+        mark("corpus")
         corpus_runs, details["corpus"] = corpus_phase(args.seed, dev, card)
         runs.update(corpus_runs)
     if "serve_stack" in only:
+        mark("serve_stack")
         stack_runs, details["serve_stack"] = serve_stack_phase(
             args.seed, dev, card)
         runs.update(stack_runs)
     if "kinds" in only:
+        mark("kinds")
         kinds_runs, details["kinds"] = kinds_phase(args.seed, dev, card)
         runs.update(kinds_runs)
         shapes = details["kinds"]["kernel_shapes"]
@@ -4602,6 +5012,7 @@ def main() -> int:
             if rows:
                 e["kinds_shapes"] = rows
     if "patch_attn" in only:
+        mark("patch_attn")
         pa_runs, details["patch_attn"] = patch_attn_phase(args.seed, dev,
                                                           card)
         runs.update(pa_runs)
@@ -4611,6 +5022,7 @@ def main() -> int:
             if rows:
                 e["patch_attn_shapes"] = rows
     if "parallel" in only:
+        mark("parallel")
         par_runs, details["parallel"] = parallel_phase(args.seed, dev, card)
         runs.update(par_runs)
         for e in entries:
@@ -4619,6 +5031,7 @@ def main() -> int:
             if rows:
                 e["parallel_shapes"] = rows
     if "tp" in only:
+        mark("tp")
         tp_runs, details["tp"] = tp_phase(args.seed, dev, card)
         runs.update(tp_runs)
         for e in entries:
@@ -4626,9 +5039,13 @@ def main() -> int:
             if rows:
                 e["tp_shapes"] = rows
     if "profile" in only:
+        mark("profile")
         details["profile"] = profile_phase(args.seed, dev)
 
+    starts["end"] = round(time.perf_counter() - t_run, 1)
+    log(f"phases started at (s): {starts}")
     log("details: " + json.dumps({**details, "launches": runs,
+                                  "phase_starts_s": starts,
                                   "torch": torch.__version__,
                                   "cuda": torch.version.cuda}))
     if args.only is not None:

@@ -164,7 +164,11 @@ class _Weights:
     """One set of served weights with its sweep functions. A reload
     replaces the whole object in one assignment: a sweep that has read it
     finishes on the weights it started with, and no parameter is ever
-    written while a sweep reads it."""
+    written while a sweep reads it. The serial sweep's CUDA graphs belong
+    to ``generate``, so new weights come with graphs of their own,
+    captured at their second sweep a signature (under the TCP server's
+    device lock; a reload building its state in another thread may use
+    the card meanwhile: utils/graphs.py captures thread-locally)."""
 
     def __init__(self, cfg: Config, model: PianoRollVAE, step: int):
         self.model, self.step = model, step
@@ -205,17 +209,20 @@ class Service:
         self.weights = _Weights(self.cfg, model, step)
 
     def warm(self, seeded: bool = False) -> None:
-        """One sweep (and with ``seeded`` one from a seed bar), so the
-        first request pays no one-time set-up (the kernel build, cuDNN's
-        algorithm choice)."""
+        """Two sweeps (and with ``seeded`` two from a seed bar), so the
+        first request pays no one-time set-up: the first runs eagerly (the
+        kernel build, cuDNN's algorithm choice), the second captures the
+        sweep's CUDA graph on the card (``make_generate_fn``). Weights a
+        reload swaps in capture theirs at their first requests."""
         seed_bars = [None]
         if seeded:
             seed_bars.append(np.zeros((self.cfg.midi.steps_per_bar,
                                        self.cfg.midi.num_pitches), np.uint8))
         labels = request_labels(self.cfg, {}, 0)
         for sb in seed_bars:
-            to_host(self.dispatch(seed_generator(0, self.device), sb,
-                                  *labels))
+            for _ in range(2):
+                to_host(self.dispatch(seed_generator(0, self.device), sb,
+                                      *labels))
 
     def prepare(self, line: str):
         """(rid, kind, payload) of one request line, None for a blank one.

@@ -19,6 +19,10 @@ and the slerp end, typically to encoded posterior samples of real music
 generator, seed bar and labels, as one [W·B]-batched sweep (``serve
 --coalesce``); ``seed_generator`` is the one map from a request's seed to
 its draws on every serve path.
+
+On the card ``make_generate_fn``'s sweep is a captured CUDA graph a
+signature (utils/graphs.py), replayed from its second call on; the
+coalesced sweep, the encode and the reconstruction run eagerly.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from musicvae_tpu_torch.models.latent import reparameterize, slerp
 from musicvae_tpu_torch.models.vae import PianoRollVAE, draw_eps
 from musicvae_tpu_torch.ops.binarize import binarize_logits
 from musicvae_tpu_torch.ops.pack import pack_bits
+from musicvae_tpu_torch.utils import graphs
 
 
 def seed_generator(seed: int, device) -> torch.Generator:
@@ -87,7 +92,8 @@ def latent_path(cfg: Config, batch: int, num_bars: int, interpolate: bool,
         z_a = z0 if z0 is not None else noise[0] * temperature
         z_b = z1 if z1 is not None else noise[1] * temperature
         ts = (torch.linspace(0.0, 1.0, n_phrases, device=noise.device)
-              if n_phrases > 1 else torch.tensor([0.5], device=noise.device))
+              if n_phrases > 1 else torch.full((1,), 0.5,
+                                               device=noise.device))
         z_phrases = slerp(z_a, z_b, ts[:, None, None])      # [n, B, z]
     else:
         z_phrases = noise * temperature
@@ -175,7 +181,7 @@ def _sweep_body(cfg: Config, model: PianoRollVAE):
         if z_phrase1 is not None:
             ts = (torch.linspace(0.0, 1.0, g.num_bars, device=noise.device)
                   if g.num_bars > 1
-                  else torch.tensor([0.5], device=noise.device))
+                  else torch.full((1,), 0.5, device=noise.device))
             z_phrase = slerp(z_phrase[None], z_phrase1[None],
                              ts[:, None]).transpose(0, 1)   # [B,N,z_phrase]
         kw = {"chord": chord, "key_sig": key_sig, "z_phrase": z_phrase}
@@ -187,12 +193,16 @@ def _sweep_body(cfg: Config, model: PianoRollVAE):
     return body
 
 
+_SWEEP_ARGS = ("seed_bar", "z0", "z1", "noise", "uniforms", "chord",
+               "key_sig", "z_phrase0", "z_phrase1")
+
+
 def make_generate_fn(cfg: Config, model: PianoRollVAE):
     """Sweep function for the shape, latent and sampling settings in
     ``cfg.gen``: (generator, seed_bar=None, z0=None, z1=None, noise=None,
     uniforms=None, chord=None, key_sig=None, z_phrase0=None,
     z_phrase1=None) → bars [num_samples, num_bars, T, P] uint8 on the
-    model's device.
+    model's device, a tensor of the caller's own.
 
     ``seed_bar`` [B,T,P] is the first prev-bar condition (a real bar);
     ``z0``/``z1`` pin the latent path (``latent_path``); cond takes chord
@@ -200,8 +210,23 @@ def make_generate_fn(cfg: Config, model: PianoRollVAE):
     ``z_phrase0`` and its morph end ``z_phrase1`` (``_sweep_body``). The
     generator, on the model's device, draws what is not given
     (``sweep_draws``) and, in Bernoulli mode, each bar's uniforms unless
-    ``uniforms`` ([B,N,T,P]) is given."""
+    ``uniforms`` ([B,N,T,P]) is given.
+
+    Each signature (which arguments are given, their shapes and dtypes,
+    whether a generator is) has its own static inputs and its own
+    generator, and runs as a ``graphs.Program``: on a CUDA device outside
+    ``utils/debug.py`` ``debug_mode`` its first sweep is eager, its second
+    is captured as one CUDA graph and every later one is a replay of it,
+    as the JAX package jits one program a signature. A call copies the
+    given tensors into the signature's buffers, sets the signature's
+    generator to the caller's state, sweeps, leaves the caller's
+    generator where the sweep left it, and returns a copy of the bars
+    made on the stream (the next sweep overwrites the graph's). The
+    draws, and so the bars, are an eager sweep's. Not for two threads at
+    once."""
     body = _sweep_body(cfg, model)
+    dev = next(model.parameters()).device
+    sweeps: dict = {}
 
     @torch.inference_mode()
     def sweep(generator: Optional[torch.Generator],
@@ -214,10 +239,46 @@ def make_generate_fn(cfg: Config, model: PianoRollVAE):
               key_sig: Optional[torch.Tensor] = None,
               z_phrase0: Optional[torch.Tensor] = None,
               z_phrase1: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return body(cfg.gen.num_samples, generator, seed_bar, z0, z1, noise,
-                    uniforms, chord, key_sig, z_phrase0, z_phrase1)
+        args = dict(zip(_SWEEP_ARGS, (seed_bar, z0, z1, noise, uniforms,
+                                      chord, key_sig, z_phrase0,
+                                      z_phrase1)))
+        given = {k: v for k, v in args.items() if v is not None}
+        key = (generator is not None,
+               tuple((k, tuple(v.shape), v.dtype) for k, v in given.items()))
+        run = sweeps.get(key)
+        if run is None:
+            run = sweeps[key] = _Sweep(body, cfg.gen.num_samples, dev,
+                                       given, generator is not None)
+        return run(generator, given)
 
+    sweep.programs = sweeps
     return sweep
+
+
+class _Sweep:
+    """One argument signature's static inputs, generator and sweep
+    program (``make_generate_fn``)."""
+
+    def __init__(self, body, batch: int, dev: torch.device, given: dict,
+                 draws: bool):
+        self.static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                       for k, v in given.items()}
+        self.generator = torch.Generator(dev) if draws else None
+        kw = {k: self.static.get(k) for k in _SWEEP_ARGS}
+        self.program = graphs.Program(
+            lambda: body(batch, self.generator, **kw), dev,
+            () if self.generator is None else (self.generator,))
+
+    def __call__(self, generator: Optional[torch.Generator],
+                 given: dict) -> torch.Tensor:
+        for k, v in given.items():
+            self.static[k].copy_(v)
+        if generator is not None:
+            self.generator.set_state(generator.get_state())
+        bars = self.program().clone()
+        if generator is not None:
+            generator.set_state(self.generator.get_state())
+        return bars
 
 
 def make_coalesced_generate_fn(cfg: Config, model: PianoRollVAE):

@@ -10,12 +10,17 @@ directory is named by their hash). Nothing here runs at import: the CPU
 tests import every module on machines with no ``nvcc``.
 
 Each wrapper adds one to its entry of ``LAUNCHES`` where it launches its
-kernel, and nowhere else, so a run can show which kernels its main path
-went through.
+kernel (``launched``), and nowhere else, so a run can show which kernels
+its main path went through. A wrapper called on a stream that is being
+captured into a CUDA graph (utils/graphs.py) launches nothing: its count
+goes to the capture's record (``capture_launches``), and each replay of
+the graph, which launches the kernel, adds the record to ``LAUNCHES``
+(``count_replay``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -44,11 +49,41 @@ LAUNCHES = {"first_conv_s2": 0, "first_conv_s2_bwd": 0, "masked_bce_sum": 0,
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}      # path, seconds, log of the build this process used
+_records: dict = {}     # stream under capture → its launch record
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def launched(name: str, stream: int) -> None:
+    """Count one launch of kernel ``name`` on ``stream`` (a pointer,
+    ``stream_of``): in ``LAUNCHES``, or, while that stream is captured
+    into a graph, in the capture's record (from whichever thread
+    launches: autograd runs a backward in a thread of its own)."""
+    record = _records.get(stream)
+    (LAUNCHES if record is None else record)[name] += 1
+
+
+@contextlib.contextmanager
+def capture_launches(stream: int):
+    """While the block captures ``stream`` (a pointer) into a graph, the
+    wrappers' launches on it count into the dict this yields: the
+    launches one replay of the graph makes."""
+    record = dict.fromkeys(LAUNCHES, 0)
+    _records[stream] = record
+    try:
+        yield record
+    finally:
+        del _records[stream]
+
+
+def count_replay(record: dict) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    ``record``."""
+    for name, n in record.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

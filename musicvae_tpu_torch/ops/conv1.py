@@ -132,12 +132,12 @@ def _forward(x, w, b, gelu: bool, out_dtype: torch.dtype) -> torch.Tensor:
                          f"{_OUT_DTYPES}")
     m = x.shape[0]
     out = torch.empty((m, T_OUT, P_OUT, c), dtype=out_dtype, device=x.device)
+    stream = _kernels.stream_of(x)
     rc = _kernels.lib().mvk_first_conv_s2(
         x.data_ptr(), _kernels.KINDS[x.dtype], w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), _kernels.KINDS[out_dtype], m, c, int(gelu),
-        _kernels.stream_of(x))
+        out.data_ptr(), _kernels.KINDS[out_dtype], m, c, int(gelu), stream)
     _kernels.check(rc, name)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.launched(name, stream)
     return out
 
 
@@ -158,12 +158,13 @@ def _backward(x, w, b, dy, gelu: bool):
     partials = torch.empty((10 * c, geometry(m, c).bwd_blocks),
                            dtype=torch.float32, device=x.device)
     out = torch.empty(10 * c, dtype=torch.float32, device=x.device)
+    stream = _kernels.stream_of(x)
     rc = _kernels.lib().mvk_first_conv_s2_bwd(
         x.data_ptr(), _kernels.KINDS[x.dtype], w.data_ptr(), b.data_ptr(),
         dy.data_ptr(), _kernels.KINDS[dy.dtype], partials.data_ptr(),
-        out.data_ptr(), m, c, int(gelu), _kernels.stream_of(x))
+        out.data_ptr(), m, c, int(gelu), stream)
     _kernels.check(rc, name)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.launched(name, stream)
     return out[:9 * c].view(3, 3, c), out[9 * c:]
 
 

@@ -63,10 +63,18 @@ def _sum_workspace(dev: torch.device, stream: int):
     """(partials [SUM_MAX_BLOCKS] f32, ticket [1] int32) for the sum kernels
     on one device and stream, made once: the ticket is zeroed here, and
     every launch leaves it 0, so no call launches a memset. Launches on one
-    stream run in order, so they can share it."""
+    stream run in order, so they can share it. A graph captured on a
+    stream (utils/graphs.py) keeps that stream's workspace, which must
+    exist before the capture (the program's eager warm-up makes it): made
+    during one, it would be the graph's memory, zeroed only at a replay."""
     key = (dev, stream)
     ws = _workspaces.get(key)
     if ws is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the BCE kernels' workspace of a stream "
+                               "under capture must be made before the "
+                               "capture: run the program eagerly on that "
+                               "stream first")
         ws = (torch.empty(SUM_MAX_BLOCKS, dtype=torch.float32, device=dev),
               torch.zeros(1, dtype=torch.int32, device=dev))
         _workspaces[key] = ws
@@ -124,7 +132,7 @@ def _bce_sum(logits, x, mask, dual: bool):
         tile = None
         rc = _kernels.lib().mvk_masked_bce_sum(*args, n, p, stream)
     _kernels.check(rc, name)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.launched(name, stream)
     return out, tile
 
 
@@ -149,12 +157,13 @@ def _bce_bwd(logits, x, mask, g):
     _kernels.check_cuda_inputs(name, logits.device, g=g)
     n, p = logits.numel(), logits.shape[-1]
     dl = torch.empty_like(logits)
+    stream = _kernels.stream_of(logits)
     rc = _kernels.lib().mvk_masked_bce_bwd(
         logits.data_ptr(), _kernels.KINDS[logits.dtype], x.data_ptr(),
         _kernels.KINDS[x.dtype], mask.data_ptr(), g.data_ptr(),
-        dl.data_ptr(), n, p, _kernels.stream_of(logits))
+        dl.data_ptr(), n, p, stream)
     _kernels.check(rc, name)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.launched(name, stream)
     return dl
 
 
@@ -250,11 +259,12 @@ def _kl_fwd(mu, logvar):
         return losses.kl_diag_gaussian(mu.float(), logvar.float())
     _check_kl(name, mu, logvar)
     out = torch.empty((), dtype=torch.float32, device=mu.device)
+    stream = _kernels.stream_of(mu)
     rc = _kernels.lib().mvk_kl_sum(
         mu.data_ptr(), logvar.data_ptr(), _kernels.KINDS[mu.dtype],
-        out.data_ptr(), mu.numel(), _kernels.stream_of(mu))
+        out.data_ptr(), mu.numel(), stream)
     _kernels.check(rc, name)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.launched(name, stream)
     return out
 
 
@@ -266,12 +276,12 @@ def _kl_bwd(mu, logvar, g):
     g = g.to(torch.float32).contiguous()
     _kernels.check_cuda_inputs(name, mu.device, g=g)
     dmu, dlv = torch.empty_like(mu), torch.empty_like(logvar)
+    stream = _kernels.stream_of(mu)
     rc = _kernels.lib().mvk_kl_bwd(
         mu.data_ptr(), logvar.data_ptr(), _kernels.KINDS[mu.dtype],
-        g.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), mu.numel(),
-        _kernels.stream_of(mu))
+        g.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), mu.numel(), stream)
     _kernels.check(rc, name)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.launched(name, stream)
     return dmu, dlv
 
 

@@ -31,9 +31,16 @@ What differs from the JAX package, and why:
 - State is mutable. Parameters live in the ``nn.Module``; a step updates
   them, the optimizer moments, the step counter and the generator in place
   and returns the same ``TrainState``.
-- There is no jit: a K-step dispatch is a Python loop of eager steps with
-  no host synchronisation inside (no ``.item()``, no host-made tensors).
-  Metrics come back as device tensors and are read at log boundaries only.
+- The counterpart of jit over ``lax.scan`` is a captured CUDA graph
+  (utils/graphs.py): on a CUDA device with no process group and outside
+  ``utils/debug.py`` ``debug_mode``, the resident K-step dispatch
+  (``make_train_step_indexed_multi``) captures one step and replays it
+  once a row of window ids, which an enqueued device copy puts in the
+  step's static input; its first step runs eagerly (the warm-up). The
+  streamed dispatch, runs with a process group (collectives) and
+  ``debug_mode`` run the same step eagerly, a Python loop with no host
+  synchronisation inside (no ``.item()``, no host-made tensors). Metrics
+  come back as device tensors and are read at log boundaries only.
 - Noise comes from the state's ``torch.Generator`` on the device, in a
   fixed order each step: the transpose shifts, then each latent level's
   normals (``vae.draw_eps``: the phrase level, then the bar level, for
@@ -87,6 +94,7 @@ from musicvae_tpu_torch.parallel import distributed
 from musicvae_tpu_torch.parallel import tp as tp_lib
 from musicvae_tpu_torch.parallel.mesh import (DataMesh, make_mesh,
                                               shard_batch)
+from musicvae_tpu_torch.utils import graphs
 
 # cuBLAS is reproducible under torch.use_deterministic_algorithms only with
 # a fixed workspace, chosen through this variable, which PyTorch reads at
@@ -211,10 +219,16 @@ class Adam:
                 keep, self._one, self._one * self.clip))
         lr = self.lr(self.count) if callable(self.lr) else self.lr
         # b1·mu is taken in mu's own dtype (rounded to bf16 when the
-        # moment is kept so), then added in f32
-        mu = torch._foreach_mul(grads, 1.0 - self.b1)
-        torch._foreach_add_(mu, [m.to(torch.float32) for m in
-                                 torch._foreach_mul(self.mu, self.b1)])
+        # moment is kept so), then added in f32; an f32 moment is updated
+        # in place (the same sum: addition commutes bit for bit), so a
+        # captured step (utils/graphs.py) reads and writes one tensor
+        if self.mu_dtype == torch.float32:
+            mu = self.mu
+            torch._foreach_mul_(mu, self.b1)
+        else:
+            mu = [m.to(torch.float32) for m in
+                  torch._foreach_mul(self.mu, self.b1)]
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - self.b1))
         sq = torch._foreach_mul(grads, grads)
         torch._foreach_mul_(sq, 1.0 - self.b2)
         torch._foreach_mul_(self.nu, self.b2)
@@ -230,9 +244,7 @@ class Adam:
             torch._foreach_add_(u, self.params, alpha=self.weight_decay)
         torch._foreach_mul_(u, -lr)
         torch._foreach_add_(self.params, u)
-        if self.mu_dtype == torch.float32:
-            self.mu = mu
-        else:
+        if self.mu_dtype != torch.float32:
             torch._foreach_copy_(self.mu, mu)
 
 
@@ -639,23 +651,99 @@ def make_train_step_indexed_multi(cfg: Config, model: PianoRollVAE,
     eps=None, shifts=None [K,B]) → (state, last step's metrics as device
     tensors); ``eps`` is [K,B,z], or a tuple of one [K, ...] tensor a
     latent level (hier: [K,B,z_phrase] and [K,B,N,z]). The body is
-    exactly the single-step update, run eagerly once per row of ``idxs``
-    with no host synchronisation in between: the host enqueues ahead of
-    the card."""
+    exactly the single-step update (``make_train_step_indexed``) over
+    static inputs: before each step, enqueued device copies put row j of
+    ``idxs`` (and of ``eps`` and ``shifts`` when given) into them, with
+    no host synchronisation in between, so the host enqueues ahead of the
+    card.
+
+    On a CUDA device, with no process group (``mesh`` None or without
+    one) and outside ``utils/debug.py`` ``debug_mode``, the step runs as
+    one captured CUDA graph (utils/graphs.py ``Program``): the first step
+    eagerly, the second captured, and each step after as a replay, the
+    counterpart of the JAX package's jit over ``lax.scan``; a graph's
+    step, transpose shifts and normals (from ``state.generator``) are an
+    eager step's, bit for bit. The graph is kept with this function for
+    the state, the resident ``data`` tensors and the argument shapes it
+    was captured for, as jit keeps a program a signature; other ones
+    capture anew. Under a process group (the step's collectives) and in
+    ``debug_mode`` every step is eager. Not for two threads at once."""
     single = make_train_step_indexed(cfg, model, use_pallas, mesh)
+    graphable = not (mesh is not None and mesh.group)
+    programs: Dict[tuple, _IndexedStep] = {}
 
     def multi(state, data, idxs, eps=None, shifts=None):
-        metrics: Dict[str, torch.Tensor] = {}
         if isinstance(eps, torch.Tensor):
             eps = (eps,)
+        key = _dispatch_key(state, data, idxs, eps, shifts)
+        step = programs.get(key)
+        if step is None:
+            programs.clear()        # one signature's graph at a time
+            step = programs[key] = _IndexedStep(
+                single, state, data, idxs, eps, shifts, graphable)
+        metrics: Dict[str, torch.Tensor] = {}
         for j in range(idxs.shape[0]):
-            state, metrics = single(
-                state, data, idxs[j],
-                None if eps is None else tuple(e[j] for e in eps),
-                None if shifts is None else shifts[j])
-        return state, metrics
+            metrics = step(j, idxs, eps, shifts)
+        # a replay's metrics are the graph's tensors, which the next
+        # dispatch overwrites
+        return state, {k: v.clone() for k, v in metrics.items()}
 
+    multi.programs = programs
     return multi
+
+
+def _dispatch_key(state: TrainState, data, idxs, eps, shifts) -> tuple:
+    """What a captured step is bound to: the state (its tensors and
+    generator, the optimizer's settings), the resident data tensors, and
+    the shapes and dtypes of a row of each per-step input."""
+    def row(t):
+        return None if t is None else (tuple(t.shape[1:]), t.dtype)
+
+    opt = state.opt
+    held = [*state.params, *opt.mu, *opt.nu, opt.count, state.step,
+            *state.model.buffers(), *(state.ema_params or ())]
+    return (id(state), id(state.generator),
+            tuple(t.data_ptr() for t in held),
+            (opt.b1, opt.b2, opt.weight_decay, opt.clip, opt.lr,
+             opt.mu_dtype),
+            tuple((k, v.data_ptr(), tuple(v.shape), v.dtype)
+                  for k, v in sorted(data.items())),
+            row(idxs), None if eps is None else tuple(map(row, eps)),
+            row(shifts))
+
+
+class _IndexedStep:
+    """One dispatch signature's static inputs and the step that reads
+    them, a ``graphs.Program``: a call copies row j of the per-step
+    inputs into the buffers (enqueued device copies) and runs the step.
+    It keeps the state and the data it reads."""
+
+    def __init__(self, single, state: TrainState, data, idxs, eps, shifts,
+                 graphable: bool):
+        dev = state.step.device
+        self.state, self.data = state, data
+
+        def buffer(t):
+            return torch.empty(t.shape[1:], dtype=t.dtype, device=dev)
+
+        self.idx = buffer(idxs)
+        self.eps = None if eps is None else tuple(map(buffer, eps))
+        self.shifts = None if shifts is None else buffer(shifts)
+
+        def body():
+            return single(state, data, self.idx, self.eps, self.shifts)[1]
+
+        self.program = graphs.Program(body, dev, (state.generator,),
+                                      graphable)
+
+    def __call__(self, j: int, idxs, eps, shifts) -> Dict[str, torch.Tensor]:
+        self.idx.copy_(idxs[j])
+        if eps is not None:
+            for buf, e in zip(self.eps, eps):
+                buf.copy_(e[j])
+        if shifts is not None:
+            self.shifts.copy_(shifts[j])
+        return self.program()
 
 
 def pick_k(cfg: Config, do_eval: bool) -> int:
