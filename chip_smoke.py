@@ -23,9 +23,19 @@ check does not hold:
    equal the eager sweep body bit for bit over 4 seeds, with and without
    a seed bar, and other seeds give other bars; p50 latency and req/s of
    stdin serving, graphs and eager (``debug_mode(disable_jit=True)``) in
-   turns;
+   turns; then ``--coalesce 4``'s sweep: the runner's warm-up captures
+   both tiers (W=1, W=4; K1 16 times a replay), 3 full-width sweeps and a
+   lone one equal eager ones bit for bit with every slot's generator,
+   which ends where a serial request's does, the slots' bars held to
+   serial serving under the flip rule; the sweep's ms and stdin req/s,
+   graph and eager in turns;
 5. eval: one 64x4-bar batch scored through the masked-BCE kernel, held
-   against the same eval with the plain BCE;
+   against the same eval with the plain BCE; the eval of a model and of
+   its EMA model as captured graphs, each its own (K1 twice and K2 once
+   a replay), 4 batches each equal to eager bit for bit, and ms a batch
+   graph and eager in turns; the reconstruction of 6 [1, 4] windows as a
+   captured graph (K1 twice a replay), equal to eager bit for bit with
+   each window's generator, and ms a window, graph and eager;
 6. fused_elbo: ``fused_elbo()`` and its gradients (the single-output BCE
    kernel, its backward kernel and the KL pair) against ``elbo_loss``
    under autograd;
@@ -45,7 +55,15 @@ check does not hold:
    without deterministic algorithms, with the capture and instantiate
    times and the graph's pool; a steady graph dispatch is K graph
    launches and no kernel launched from the step body, and its kernels
-   by name (torch.profiler) are the launches the wrappers counted;
+   by name (torch.profiler) are the launches the wrappers counted. Then
+   the streamed dispatch (``train --stream``'s) as a captured graph:
+   ``train()`` on an iterator (20 steps in dispatches of 5 behind the
+   producer thread) and 20 one-step streamed dispatches equal 20 eager
+   steps on the unpacked rolls bit for bit (every loss, the state, the
+   generator; K4 once a replay); streamed dispatches over uploaded
+   stacks timed graph and eager in turns as the resident ones are;
+   ``train()``'s steps/s streamed (graph and eager) against resident at
+   K = 5 and K = 100, and the producer's host ms a stack at both;
 8. ckpt: full-width c2_gru_4bar checkpoints: 20 steps with a save every
    10 equal 10 steps restored from disk into a fresh state and 10 more,
    bit for bit; a truncated latest step falls back to the one before and
@@ -70,7 +88,9 @@ check does not hold:
    kernel on: serial serving and ``--coalesce 4`` answer 8 seeds, plain
    and seeded, alike under the flip rule (a cell may flip only where
    sigma lies within 1e-3 of the threshold; flips and margins printed),
-   K1 at M=4 for a lone request and M=16 for a coalesced one; ``serve
+   K1 at M=4 for a lone request and M=16 for a coalesced one (each
+   tier's M at its capture in the warm-up; the sweeps after are
+   replays, counted by their launches); ``serve
    --port --coalesce 4 --reload-every 0.5 --max-requests`` in-process
    with 4 concurrent clients, a newer step saved and pushed mid-run
    (``stats`` shows it, later answers are the new weights'); a reload
@@ -120,8 +140,9 @@ check does not hold:
 13. parallel: data-parallel training at full width (c2_gru_4bar, bf16,
    64 x 4, the seeded bar cache): (a) 5 streamed steps (packed, uploaded
    on a side stream) equal 5 single steps bit for bit, ``train --stream``
-   through the CLI (K4 a step), streamed and resident steps/s in turns,
-   one packed 5-stack's upload timed on its stream; (b) an NCCL group of
+   through the CLI (K4 a step), one packed 5-stack's upload timed on its
+   stream (streamed against resident steps/s: the train phase); (b) an
+   NCCL group of
    world size 1 joined through the MVAE_* variables equals the run
    without a group bit for bit; (c) two processes sharing the card over
    gloo (``--dp-worker``) run ``train`` through the CLI, resident,
@@ -135,7 +156,7 @@ check does not hold:
    uninterrupted run's bits;
    (e) c2_trf and c3_trf on init weights serve the same bits serial and
    --coalesce 4, and a lone request the bits it gets padded, with the
-   req/s of the slot-at-a-time ops against all slots at once, in turns;
+   req/s of the slot-at-a-time ops beside all slots at once;
    K4 at the per-process shape against its plain version, timed;
 14. tp: tensor parallelism (``parallel.tp.shard_params``) at full width
    (c2_gru_4bar, 64 x 4, the seeded bar cache resident), 20 steps (10 for
@@ -1286,7 +1307,7 @@ def reference_check(seed: int, dev: torch.device,
             "levels": len(lat_g)}
 
 
-def serve_phase(seed: int, dev: torch.device):
+def serve_phase(seed: int, dev: torch.device, card: str):
     from musicvae_tpu_torch.cli import Service, serve_stream
     from musicvae_tpu_torch.config import GenSpec, get_config
     from musicvae_tpu_torch.midi import smf, tensorize
@@ -1399,13 +1420,150 @@ def serve_phase(seed: int, dev: torch.device):
         f"({share:.4%}); bar 0: {first_bar_differ} cells")
     check(share <= FLIP_LIMIT, f"{share:.2%} of cells differ from the "
                                f"stock-conv path (limit {FLIP_LIMIT:.0%})")
-    return launches, {"latency_ms": latencies, "stats": stats,
-                      "request_split": split,
-                      "stock_conv_differ_cells": differ,
-                      "stock_conv_total_cells": total,
-                      "stock_conv_first_bar_differ": first_bar_differ,
-                      "graph": _serve_graph_checks(cfg, model, service,
-                                                   seeds, dev)}
+    graph = _serve_graph_checks(cfg, model, service, seeds, dev)
+    coal_launches, coalesced = _coalesced_graph_checks(
+        cfg, model, service, seeds, dev, card)
+    return ({"serve": launches, "serve_coalesced": coal_launches},
+            {"latency_ms": latencies, "stats": stats,
+             "request_split": split,
+             "stock_conv_differ_cells": differ,
+             "stock_conv_total_cells": total,
+             "stock_conv_first_bar_differ": first_bar_differ,
+             "graph": graph, "coalesced": coalesced})
+
+
+COALESCE_W = 4        # serve --coalesce width held graph against eager
+COALESCE_ROUNDS = 3   # full-width sweeps held to eager ones (and serial)
+
+
+def _coalesced_graph_checks(cfg, model, service, seeds, dev, card: str):
+    """``serve --coalesce 4``'s sweep (``make_coalesced_generate_fn``
+    through ``_CoalescedRunner``) as captured graphs: the runner's warm-up
+    runs each tier (W=1, W=4) twice, so both are captured before a
+    request; then COALESCE_ROUNDS full-width sweeps (a seeded slot among
+    them) and a lone one equal the same sweeps under ``debug_mode``'s
+    disable_jit bit for bit, every slot's generator ending at the same
+    state, which is the state a serial request's sweep leaves, and each
+    slot's bars hold to the serial sweep's under the flip rule; then the
+    sweep's ms and stdin ``--coalesce 4``'s req/s, graph and eager in
+    turns. Returns (launches of the warm-up and the held sweeps,
+    details)."""
+    from musicvae_tpu_torch import cli
+    from musicvae_tpu_torch.generate import sampler
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.ops.pack import unpack_bits_np
+    from musicvae_tpu_torch.utils import debug_mode
+
+    t_block = time.perf_counter()
+    b = cfg.gen.num_samples
+    bar = service.generate(torch.Generator(dev).manual_seed(seeds[-1]))[
+        0, -1].contiguous()             # a generated bar as the seed bar
+    runner = cli._CoalescedRunner(service, COALESCE_W)
+    _kernels.reset_launches()
+    runner.warm()
+    coalesced = service.weights.coalesced
+
+    def sweep(round_seeds, seeded):
+        gens = [sampler.seed_generator(s, dev) for s in round_seeds]
+        sb = torch.zeros((len(gens), b, 96, 128), dtype=torch.uint8,
+                         device=dev)
+        if seeded is not None:
+            sb[seeded] = bar
+        return coalesced(gens, sb), [gn.get_state() for gn in gens], sb
+
+    rounds = [([seeds[0] + 100 * r + i for i in range(COALESCE_W)],
+               r % COALESCE_W) for r in range(COALESCE_ROUNDS)]
+    rounds.append(([seeds[0] + 777], None))             # the lone tier
+    got = [sweep(*r) for r in rounds]
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    with debug_mode(nans=False, disable_jit=True):
+        want = [sweep(*r) for r in rounds]
+    programs = coalesced.programs
+    out = {"sweeps": len(rounds),
+           "bits_equal": all(torch.equal(a[0], w[0])
+                             for a, w in zip(got, want)),
+           "slot_generators_equal": all(
+               torch.equal(x, y) for a, w in zip(got, want)
+               for x, y in zip(a[1], w[1])),
+           "programs": {str(k[0]): {
+               "graphed": p.program.graph is not None,
+               "replays": p.program.replays,
+               "launches_per_replay": {n: v for n, v in
+                                       p.program.launches.items() if v},
+               "graph": p.program.info} for k, p in programs.items()}}
+    check(out["bits_equal"] and out["slot_generators_equal"],
+          "coalesced: the graphs' sweeps differ from eager ones")
+    check(sorted(out["programs"]) == ["1", str(COALESCE_W)]
+          and all(p["graphed"] for p in out["programs"].values()),
+          f"coalesced: programs {out['programs']}")
+    check(out["programs"][str(COALESCE_W)]["replays"] == 1 + COALESCE_ROUNDS
+          and out["programs"][str(COALESCE_W)]["launches_per_replay"]
+          == {"first_conv_s2": cfg.gen.num_bars},
+          f"coalesced: {out['programs']}")
+    check(launches["first_conv_s2"] == cfg.gen.num_bars * (4 + len(rounds)),
+          f"coalesced: K1 launched {launches['first_conv_s2']} times in "
+          f"4 warm-up sweeps and {len(rounds)} held ones")
+    # against serial serving: each slot's generator state and bars
+    refs, results, states = [], [], []
+    for (round_seeds, seeded), (packed, gen_states, sb) in zip(rounds, got):
+        bars = unpack_bits_np(packed.cpu().numpy())
+        for i, s in enumerate(round_seeds):
+            gen = sampler.seed_generator(s, dev)
+            service.generate(gen, seed_bar=sb[i] if i == seeded else None)
+            states.append(torch.equal(gen.get_state(), gen_states[i]))
+            refs.append(_serial_reference(
+                cfg, model, dev, s,
+                None if i != seeded else bar.cpu().numpy()))
+            results.append(bars[i])
+    out["slot_generators_equal_serial"] = all(states)
+    out["vs_serial"] = _agree(results, refs, cfg.midi.binarize_threshold)
+    log(f"coalesced graph vs eager and serial: {out}")
+    check(out["slot_generators_equal_serial"],
+          "coalesced: a slot's generator ends elsewhere than a serial "
+          "request's")
+    gens = [sampler.seed_generator(s, dev) for s in rounds[0][0]]
+    sb0 = torch.zeros((COALESCE_W, b, 96, 128), dtype=torch.uint8,
+                      device=dev)
+    _, names, kernel_ms, _ = _dispatch_trace(lambda: coalesced(gens, sb0))
+    out["kernels_per_replay"] = sum(names.values())
+    out["kernel_ms_per_replay"] = kernel_ms
+    lines = "".join(json.dumps({"id": i, "seed": seeds[0] + 50 + i}) + "\n"
+                    for i in range(SERVE_TIMED))
+    timing = {}
+    for name in ("graph", "eager", "eager_again", "graph_again"):
+        with (contextlib.nullcontext() if name.startswith("graph")
+              else debug_mode(nans=False, disable_jit=True)):
+            svc = cli.Service(cfg, model)
+            r = cli._CoalescedRunner(svc, COALESCE_W)
+            r.warm()
+            sweep_ms = _timed_calls(
+                lambda i: svc.weights.coalesced(
+                    [sampler.seed_generator(s + i, dev)
+                     for s in rounds[0][0]], sb0).cpu(), 4)
+            o = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.serve_stream_coalesced(svc, r, io.StringIO(lines), o)
+            dt = time.perf_counter() - t0
+        resp = [json.loads(ln) for ln in o.getvalue().splitlines()]
+        check(len(resp) == SERVE_TIMED and all("midi_b64" in x
+                                                for x in resp),
+              f"coalesced timing {name}: {resp[:1]}")
+        timing[name] = {**_load_stats([x["latency_ms"] for x in resp],
+                                      len(resp), dt, float(np.mean(
+                                          [x["density"] for x in resp]))),
+                        "sweep_ms": sweep_ms,
+                        "graphed": _graphs_captured(svc.weights.coalesced)}
+        check(timing[name]["graphed"] == name.startswith("graph"),
+              f"coalesced timing {name}: graphed "
+              f"{timing[name]['graphed']}")
+    out["timing"] = timing
+    out["device_busy_share"] = kernel_ms / timing["graph_again"]["sweep_ms"]
+    log(f"coalesced --coalesce {COALESCE_W} timing, graph and eager in "
+        f"turns ({card}): {timing}")
+    out["seconds"] = time.perf_counter() - t_block
+    return launches, out
 
 
 SERVE_TIMED = 8       # requests of each timed serve run, graph and eager
@@ -1473,7 +1631,170 @@ def _serve_graph_checks(cfg, model, service, seeds, dev) -> dict:
     return out
 
 
-def eval_phase(seed: int, dev: torch.device):
+EVAL_BATCHES = 4     # batches each eval program is held to its eager runs
+EVAL_TIMED = 10      # timed eval batches (reconstructed windows) each way
+RECON_WINDOWS = 6    # windows the reconstruction is held to its eager runs
+
+
+def _timed_calls(fn, n: int) -> float:
+    """Mean host ms of ``n`` calls of ``fn``, each waited for (the host
+    reads what the call returns, as its callers do)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _eval_graph_checks(cfg, seed: int, dev, card: str):
+    """The eval (``make_eval_fn``) of a model and of its EMA model as
+    captured graphs: EVAL_BATCHES 64x4 batches through each model's
+    program (the first eager, the second captured, then replays) equal
+    the same calls under ``debug_mode``'s disable_jit bit for bit, and
+    each model has a program of its own; then ms a batch, graph and
+    eager in turns, with one host read of the stacked metrics a batch
+    (``train()``'s evals). Returns (launches of the graphed evals,
+    details)."""
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.train import trainer
+    from musicvae_tpu_torch.utils import debug_mode
+    from musicvae_tpu_torch.utils.metrics import make_eval_fn
+
+    t_block = time.perf_counter()
+    ecfg = cfg.replace(train=dataclasses.replace(cfg.train, ema_decay=0.9))
+    model, state = trainer.create_state(ecfg, device=dev, seed=seed + 2)
+    g = torch.Generator(dev).manual_seed(seed + 3)
+
+    def batch():
+        return ((torch.rand((64, 4, 96, 128), generator=g, device=dev)
+                 < 0.05).to(torch.uint8),
+                (torch.randn((64, cfg.model.z_dim), generator=g,
+                             device=dev),))
+
+    step = trainer.make_train_step(ecfg, model)
+    for _ in range(2):                  # the EMA moves off the weights
+        step(state, {"x": batch()[0]})
+    batches = [batch() for _ in range(EVAL_BATCHES)]
+    fns = {"model": make_eval_fn(cfg, model),
+           "ema": make_eval_fn(cfg, state.ema_model)}
+    _kernels.reset_launches()
+    got = {name: [fn(x, eps) for x, eps in batches]
+           for name, fn in fns.items()}
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    with debug_mode(nans=False, disable_jit=True):
+        want = {name: [fn(x, eps) for x, eps in batches]
+                for name, fn in fns.items()}
+    out = {"bits_equal": all(
+        torch.equal(a[k], b[k]) for name in fns
+        for a, b in zip(got[name], want[name]) for k in a),
+        "ema_differs": got["model"][0]["loss"].item()
+        != got["ema"][0]["loss"].item()}
+    for name, fn in fns.items():
+        (p,) = [s.program for s in fn.programs.values()]
+        out[name] = {"graphed": p.graph is not None, "replays": p.replays,
+                     "launches_per_replay": {k: v for k, v in
+                                             p.launches.items() if v},
+                     "graph": p.info}
+    log(f"eval graph vs eager ({EVAL_BATCHES} batches, model and EMA): "
+        f"{out}; launches {launches}")
+    check(out["bits_equal"], "eval: the graphs' metrics differ from eager")
+    check(out["ema_differs"], "eval: the EMA model scores as the model")
+    for name in fns:
+        check(out[name]["graphed"]
+              and out[name]["replays"] == EVAL_BATCHES - 1
+              and out[name]["launches_per_replay"]
+              == {"first_conv_s2": 2, "masked_bce_sum": 1},
+              f"eval {name}: {out[name]}")
+    check(launches["masked_bce_sum"] == 2 * EVAL_BATCHES
+          and launches["first_conv_s2"] == 4 * EVAL_BATCHES,
+          f"eval: launches {launches}")
+    fn = fns["model"]
+    x, eps = batches[0]
+    _, names, kernel_ms, _ = _dispatch_trace(lambda: fn(x, eps))
+    out["kernels_per_replay"] = sum(names.values())
+    out["kernel_ms_per_replay"] = kernel_ms
+    timing = {}
+    for name in ("graph", "eager", "eager_again", "graph_again"):
+        with (contextlib.nullcontext() if name.startswith("graph")
+              else debug_mode(nans=False, disable_jit=True)):
+            timing[name] = _timed_calls(
+                lambda i: torch.stack(list(fn(*batches[i % EVAL_BATCHES])
+                                           .values())).tolist(), EVAL_TIMED)
+    out["ms_per_batch"] = timing
+    out["device_busy_share"] = kernel_ms / timing["graph_again"]
+    log(f"eval ms a 64x4 batch, graph and eager in turns ({card}): "
+        f"{timing}; the graph's kernels {kernel_ms:.3f} ms in "
+        f"{out['kernels_per_replay']} kernels")
+    out["seconds"] = time.perf_counter() - t_block
+    return launches, out
+
+
+def _reconstruct_graph_checks(cfg, model, seed: int, dev, card: str):
+    """``reconstruct_fn`` as a captured graph: RECON_WINDOWS [1, 4, 96,
+    128] f32 windows, each with a generator of its own (the
+    ``reconstruct`` command's posterior seed a window), the first eager,
+    the second captured, then replays, equal to the same windows under
+    ``debug_mode``'s disable_jit bit for bit, the generators too; then ms
+    a window, graph and eager in turns. Returns (launches, details)."""
+    from musicvae_tpu_torch.generate import sampler
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.utils import debug_mode
+
+    t_block = time.perf_counter()
+    g = torch.Generator(dev).manual_seed(seed + 4)
+    windows = [(torch.rand((1, 4, 96, 128), generator=g, device=dev)
+                < 0.08).to(torch.float32) for _ in range(RECON_WINDOWS)]
+    rec = sampler.reconstruct_fn(cfg, model)
+
+    def run(w):
+        gen = torch.Generator(dev).manual_seed(seed + w)
+        return rec(windows[w], gen), gen.get_state()
+
+    _kernels.reset_launches()
+    got = [run(w) for w in range(RECON_WINDOWS)]
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    with debug_mode(nans=False, disable_jit=True):
+        want = [run(w) for w in range(RECON_WINDOWS)]
+    (p,) = [s.program for s in rec.programs.values()]
+    out = {"windows": RECON_WINDOWS,
+           "bits_equal": all(torch.equal(a[0], b[0])
+                             for a, b in zip(got, want)),
+           "generators_equal": all(torch.equal(a[1], b[1])
+                                   for a, b in zip(got, want)),
+           "density": float(torch.stack([o for o, _ in got]).mean()),
+           "graphed": p.graph is not None, "replays": p.replays,
+           "launches_per_replay": {k: v for k, v in p.launches.items()
+                                   if v},
+           "graph": p.info}
+    log(f"reconstruct graph vs eager: {out}")
+    check(out["bits_equal"] and out["generators_equal"],
+          "reconstruct: the graph's windows differ from eager ones")
+    check(out["graphed"] and out["replays"] == RECON_WINDOWS - 1
+          and out["launches_per_replay"] == {"first_conv_s2": 2},
+          f"reconstruct: {out}")
+    check(0.0 < out["density"] < 1.0, f"reconstruct: density "
+                                      f"{out['density']}")
+    _, names, kernel_ms, _ = _dispatch_trace(lambda: run(0))
+    out["kernels_per_replay"] = sum(names.values())
+    out["kernel_ms_per_replay"] = kernel_ms
+    timing = {}
+    for name in ("graph", "eager", "eager_again", "graph_again"):
+        with (contextlib.nullcontext() if name.startswith("graph")
+              else debug_mode(nans=False, disable_jit=True)):
+            timing[name] = _timed_calls(
+                lambda i: run(i % RECON_WINDOWS)[0].cpu(), EVAL_TIMED)
+    out["ms_per_window"] = timing
+    log(f"reconstruct ms a window, graph and eager in turns ({card}): "
+        f"{timing}; the graph's kernels {kernel_ms:.3f} ms in "
+        f"{out['kernels_per_replay']} kernels")
+    out["seconds"] = time.perf_counter() - t_block
+    return launches, out
+
+
+def eval_phase(seed: int, dev: torch.device, card: str):
     from musicvae_tpu_torch.config import get_config
     from musicvae_tpu_torch.models.vae import build_model
     from musicvae_tpu_torch.ops import _kernels, losses
@@ -1511,7 +1832,13 @@ def eval_phase(seed: int, dev: torch.device):
         rel = abs(got[k] - plain[k]) / max(abs(plain[k]), 1e-12)
         check(rel <= 1e-5, f"eval {k}: kernel {got[k]} vs plain "
                            f"{plain[k]} (rel {rel:.2e})")
-    return launches, {"kernel": got, "plain": plain, "eval_ms_host": dt * 1e3}
+    graph_launches, graph = _eval_graph_checks(cfg, seed, dev, card)
+    rec_launches, rec = _reconstruct_graph_checks(cfg, model, seed, dev,
+                                                  card)
+    return ({"eval": launches, "eval_graph": graph_launches,
+             "reconstruct": rec_launches},
+            {"kernel": got, "plain": plain, "eval_ms_host": dt * 1e3,
+             "graph": graph, "reconstruct": rec})
 
 
 def profiled_kernels(fn, attempts: int = 3):
@@ -1681,16 +2008,25 @@ def _graph_vs_eager_steps(cfg, ds, dev, seed: int, steps: int) -> dict:
 
 def _dispatch_trace(fn, attempts: int = 3):
     """(host runtime calls by name, device kernels by name with their
-    counts, the summed kernel time in ms) of one call of ``fn``, from
-    torch.profiler (``profiled_kernels``' sums); a trace with no device
-    time (CUPTI drops one now and then) is taken again."""
+    counts, the summed kernel time in ms, the launches the wrappers
+    counted) of one call of ``fn``, from torch.profiler
+    (``profiled_kernels``' sums). CUPTI drops a trace's device records now
+    and then, all of them or one kernel's: a trace with no device time,
+    or whose hand-written kernels by name differ from the launches counted
+    for the same call (``_traced_kernels_agree``), is taken again, and
+    the last is returned if every attempt disagrees."""
     from torch.profiler import ProfilerActivity, profile
 
+    from musicvae_tpu_torch.ops import _kernels
+
+    out = None
     for _ in range(attempts):
+        before = dict(_kernels.LAUNCHES)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        counted = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
         events = prof.key_averages()
         device = [e for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1699,10 +2035,25 @@ def _dispatch_trace(fn, attempts: int = 3):
             calls = {e.key: e.count for e in events
                      if e.device_type == torch.autograd.DeviceType.CPU
                      and e.key.startswith("cuda")}
-            return (calls, {e.key: e.count for e in device},
-                    sum(e.device_time_total for e in device) / 1e3)
-    check(False, f"torch.profiler recorded no device time in {attempts} "
-                 f"traces")
+            names = {e.key: e.count for e in device}
+            out = (calls, names,
+                   sum(e.device_time_total for e in device) / 1e3, counted)
+            if _traced_kernels_agree(names, counted):
+                return out
+    check(out is not None, f"torch.profiler recorded no device time in "
+                           f"{attempts} traces")
+    return out
+
+
+def _traced_kernels_agree(names: dict, counted: dict) -> bool:
+    """Whether a trace holds as many K4, K1 and K1b kernels by name as
+    their wrappers counted launches for the traced call."""
+    return (_kernel_calls(names, "bce_sum<")
+            >= counted["masked_bce_sum_dual"]
+            and _kernel_calls(names, "conv1_kernel")
+            == counted["first_conv_s2"]
+            and _kernel_calls(names, "conv1_bwd_kernel")
+            == counted["first_conv_s2_bwd"])
 
 
 def _runtime_calls(calls: dict, prefix: str) -> int:
@@ -1713,7 +2064,238 @@ def _kernel_calls(kernels: dict, name: str) -> int:
     return sum(n for k, n in kernels.items() if name in k)
 
 
-def train_phase(seed: int, dev: torch.device):
+STREAM_TIMED = 6      # timed streamed dispatches of TRAIN_K steps, each way
+STREAM_TRAIN = 30     # steps of each streamed / resident train() timing run
+PRODUCER_KS = (TRAIN_K, 100)   # stack sizes the producer is timed at:
+#                                the smoke's K and train()'s cap
+
+
+def _queued_stacks(uploader, stacks):
+    """The uploaded stacks as the producer hands them to the train loop:
+    a queue of ("stack", device tensors, event) items."""
+    import queue
+
+    q = queue.Queue()
+    for stacked in stacks:
+        q.put(("stack",) + uploader.put(stacked))
+    return q
+
+
+def _producer_ms(ds, b: int, seed: int, k: int, uploader, reps: int = 3):
+    """The streaming producer's host work for one K-stack, by part (host
+    clock): the K host batches from the iterator, stacking and packing
+    (``_stack_host_batches``), and the upload's staging and enqueue
+    (``_StackUploader.put``; its copy runs on the side stream), the
+    mean of ``reps`` stacks after one."""
+    from musicvae_tpu_torch.train import trainer
+
+    it = ds.iterator(b, seed=seed, x_dtype=np.uint8)
+    parts = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        host = [next(it) for _ in range(k)]
+        t1 = time.perf_counter()
+        stacked = trainer._stack_host_batches(host, cond=False)
+        t2 = time.perf_counter()
+        uploader.put(stacked)
+        t3 = time.perf_counter()
+        parts.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+    torch.cuda.synchronize()
+    mean = [sum(p[i] for p in parts[1:]) / reps for i in range(3)]
+    out = {"k": k, "batches_ms": mean[0], "stack_pack_ms": mean[1],
+           "put_ms": mean[2], "stack_ms": sum(mean),
+           "stack_ms_per_step": sum(mean) / k,
+           "rolls_bytes": k * b * 4 * 96 * 128,
+           "packed_bytes": k * b * 4 * 96 * 16}
+    return out
+
+
+def _stream_graph_checks(cfg, ds, dev, seed: int, card: str):
+    """The streamed dispatch (``make_train_step_multi(packed_x=True)``)
+    as a captured graph. (a) ``train()`` on an iterator of host batches,
+    20 steps in dispatches of 5 behind the producer thread, and the same
+    20 batches as one-step streamed dispatches (each stack uploaded on
+    the producer's side stream and taken through ``_next_stack``), against
+    20 eager ``make_train_step`` steps on the unpacked rolls from the same
+    initial bits: every loss, the parameters, Adam moments, count, step
+    and the generator's state, bit for bit. (b) steps/s, host and enqueue
+    ms, kernel ms and the busy share of streamed dispatches over uploaded
+    stacks, graph and eager (``debug_mode``'s disable_jit) in turns; a
+    steady graph dispatch's runtime calls and kernels. (c) ``train()``'s
+    steps/s streamed (graph, eager) against resident (graph), at K = 5 and
+    at K = 100, and the producer's host ms a stack at both. Returns
+    (launches of the streamed ``train()`` run, details)."""
+    from musicvae_tpu_torch.ops import _kernels
+    from musicvae_tpu_torch.train import trainer
+    from musicvae_tpu_torch.utils import debug_mode
+
+    t_block = time.perf_counter()
+    b = cfg.train.batch_size
+    scfg = cfg.replace(train=dataclasses.replace(cfg.train, eval_every=0))
+
+    def batches(n):
+        it = ds.iterator(b, seed=seed, x_dtype=np.uint8)
+        return [next(it) for _ in range(n)]
+
+    host = batches(TRAIN_STEPS)
+    # (a) eager single steps, then train() on the iterator, then one-step
+    # streamed dispatches
+    model_e, state_e = trainer.create_state(scfg, device=dev)
+    single = trainer.make_train_step(scfg, model_e)
+    with trainer.deterministic_algorithms():
+        eager_losses = [single(state_e, {"x": torch.from_numpy(
+            h["x"]).to(dev)})[1]["loss"] for h in host]
+    eager_losses = [float(v) for v in eager_losses]
+    logged = []
+    _kernels.reset_launches()
+    _, state_t, _ = trainer.train(
+        scfg, ds.iterator(b, seed=seed, x_dtype=np.uint8),
+        num_steps=TRAIN_STEPS, log_fn=lambda s, m: logged.append((s, m)),
+        device=dev)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    check(launches["masked_bce_sum_dual"] == TRAIN_STEPS,
+          f"train --stream's path launched K4 "
+          f"{launches['masked_bce_sum_dual']} times in {TRAIN_STEPS} steps")
+    uploader = trainer._StackUploader(dev)
+    model_g, state_g = trainer.create_state(scfg, device=dev)
+    multi_1 = trainer.make_train_step_multi(scfg, model_g, packed_x=True)
+    q = _queued_stacks(uploader, [trainer._stack_host_batches([h], False)
+                                  for h in host])
+    graph_losses = []
+    with trainer.deterministic_algorithms():
+        for _ in host:
+            graph_losses.append(multi_1(
+                state_g, trainer._next_stack(q, dev))[1]["loss"])
+    graph_losses = [float(v) for v in graph_losses]
+    bits_e = _state_bits(state_e)
+    (program,) = [p.program for p in multi_1.programs.values()]
+    out = {
+        "loss_sequence_equal": graph_losses == eager_losses,
+        "train_logged_losses_equal": [m["loss"] for _, m in logged]
+        == eager_losses[TRAIN_K - 1::TRAIN_K],
+        "train_state_bits_equal": all(torch.equal(x, y) for x, y in zip(
+            _state_bits(state_t), bits_e)),
+        "train_generator_equal": _rng_equal(state_t, state_e),
+        "one_step_dispatches_state_bits_equal": all(
+            torch.equal(x, y) for x, y in zip(_state_bits(state_g), bits_e)),
+        "one_step_dispatches_generator_equal": _rng_equal(state_g, state_e),
+        "graphed": _graphs_captured(multi_1),
+        "replays": program.replays,
+        "launches_per_replay": {k: v for k, v in program.launches.items()
+                                if v}}
+    log(f"train stream graph vs eager, {TRAIN_STEPS} steps: {out}")
+    check(all(v for k, v in out.items() if k not in (
+              "replays", "launches_per_replay")),
+          f"streamed graph and eager training differ: {out}")
+    check(out["replays"] == TRAIN_STEPS - 1
+          and out["launches_per_replay"] == {"masked_bce_sum_dual": 1},
+          f"streamed dispatch: {out['replays']} replays, "
+          f"{out['launches_per_replay']} a replay")
+    del model_e, state_e, model_g, state_g, multi_1, state_t
+
+    # (b) dispatches by hand over uploaded stacks, graph and eager in turns
+    n_disp = STREAM_TIMED + 2
+    it = ds.iterator(b, seed=seed + 1, x_dtype=np.uint8)
+    stacks = [trainer._stack_host_batches([next(it) for _ in range(TRAIN_K)],
+                                          False) for _ in range(n_disp + 2)]
+
+    def timed(graph):
+        model, state = trainer.create_state(scfg, device=dev)
+        multi = trainer.make_train_step_multi(scfg, model, packed_x=True)
+        q = _queued_stacks(uploader, stacks)
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(trainer.deterministic_algorithms())
+        if not graph:
+            ctx.enter_context(debug_mode(nans=False, disable_jit=True))
+        with ctx:
+            for _ in range(2):                          # warm-up, capture
+                multi(state, trainer._next_stack(q, dev))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                for _ in range(STREAM_TIMED):
+                    state, m = multi(state, trainer._next_stack(q, dev))
+                enqueue = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            rest = trainer._next_stack(q, dev)
+            calls, names, kernel_ms, counted = _dispatch_trace(
+                lambda: multi(state, rest))
+        steps = STREAM_TIMED * TRAIN_K
+        t = {"steps_per_s": steps / host_s,
+             "host_ms_per_step": host_s / steps * 1e3,
+             "enqueue_ms_per_step": enqueue / steps * 1e3,
+             "device_ms_per_step": kernel_ms / TRAIN_K,
+             "kernels_per_step": sum(names.values()) / TRAIN_K,
+             "loss": float(m["loss"]),
+             "graphed": _graphs_captured(multi),
+             "graph": _graph_info(multi),
+             "dispatch": {
+                 "graph_launches": _runtime_calls(calls, "cudaGraphLaunch"),
+                 "kernel_launches": _runtime_calls(calls,
+                                                   "cudaLaunchKernel"),
+                 "memcpy": _runtime_calls(calls, "cudaMemcpy"),
+                 "k4_kernels": _kernel_calls(names, "bce_sum<"),
+                 "counted": {k: v for k, v in counted.items() if v}}}
+        t["device_busy_share"] = t["device_ms_per_step"] / t[
+            "host_ms_per_step"]
+        check(t["graphed"] == graph, f"streamed timing: graphed "
+                                     f"{t['graphed']}, asked {graph}")
+        d = t["dispatch"]
+        check(d["k4_kernels"] == TRAIN_K
+              and d["counted"].get("masked_bce_sum_dual") == TRAIN_K,
+              f"streamed dispatch: the profiler's kernels and the counts "
+              f"disagree: {d}")
+        if graph:
+            check(d["graph_launches"] == TRAIN_K
+                  and d["kernel_launches"] <= 4 * TRAIN_K + 8,
+                  f"a steady streamed graph dispatch made "
+                  f"{d['graph_launches']} graph launches and "
+                  f"{d['kernel_launches']} kernel launches")
+        return t
+
+    timing = {}
+    for name in ("graph", "eager", "eager_again", "graph_again"):
+        timing[name] = timed(name.startswith("graph"))
+        log(f"train stream timing {name} ({card}): {timing[name]}")
+
+    # (c) train() end to end: the producer thread feeding the graphs
+    end_to_end = []
+    big = PRODUCER_KS[-1]
+    for k, path, graph in ((TRAIN_K, "resident", True),
+                           (TRAIN_K, "stream", True),
+                           (TRAIN_K, "stream", False),
+                           (big, "resident", True), (big, "stream", True)):
+        steps = STREAM_TRAIN if k == TRAIN_K else 3 * k
+        c = scfg.replace(train=dataclasses.replace(
+            scfg.train, num_steps=steps, log_every=k))
+        data = ds if path == "resident" else ds.iterator(
+            b, seed=seed, x_dtype=np.uint8)
+        with (contextlib.nullcontext() if graph
+              else debug_mode(nans=False, disable_jit=True)):
+            _, m, rate, _ = _timed_train(c, data, dev)
+        end_to_end.append({"k": k, "path": path, "graph": graph,
+                           "steps_per_s": rate,
+                           "host_ms_per_step": 1e3 / rate,
+                           "loss": float(m["loss"])})
+        log(f"train stream end to end ({card}): {end_to_end[-1]}")
+    producer = [_producer_ms(ds, b, seed, k, uploader) for k in PRODUCER_KS]
+    for p in producer:
+        disp = [e["host_ms_per_step"] * p["k"] for e in end_to_end
+                if e["k"] == p["k"] and e["path"] == "resident"]
+        p["resident_graph_dispatch_ms"] = min(disp)
+        p["share_of_dispatch"] = p["stack_ms"] / min(disp)
+        log(f"train stream producer ({card}): {p}")
+    out.update(timing=timing, end_to_end=end_to_end, producer=producer)
+    out["seconds"] = time.perf_counter() - t_block
+    return launches, out
+
+
+def train_phase(seed: int, dev: torch.device, card: str):
     """Full-width c2_gru_4bar in bf16, batch 64, through ``train()`` on a
     resident seeded bar cache; see the module docstring's phase 7."""
     from musicvae_tpu_torch.config import get_config
@@ -1887,10 +2469,8 @@ def train_phase(seed: int, dev: torch.device):
             dispatch_ms = (held_ms(lambda: multi(state, data_dev, idxs[0]),
                                    spin_cycles=150_000_000, strict=False)
                            if graph else None)
-            before = dict(_kernels.LAUNCHES)
-            calls, names, kernel_ms = _dispatch_trace(
+            calls, names, kernel_ms, counted = _dispatch_trace(
                 lambda: multi(state, data_dev, idxs[0]))
-            counted = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
             kernels = sum(names.values())
         held = [v for v in step_ms if v is not None]
         out = {"steps_per_s": steps / host,
@@ -1999,8 +2579,12 @@ def train_phase(seed: int, dev: torch.device):
           and rel_norm <= GRAD_NORM_TOL,
           f"bf16 and f32 grad_norm differ by {rel_norm:.2%}")
 
-    return ({"train": launches, "train_conv1": launches_c},
+    stream_launches, stream = _stream_graph_checks(cfg, train_ds, dev, seed,
+                                                   card)
+    return ({"train": launches, "train_conv1": launches_c,
+             "train_stream": stream_launches},
             {"logged": logged_a, "seconds_with_startup": dt_a,
+             "stream": stream,
              "repeat_same_bits": same_loss and same_params,
              "graph_vs_eager": graph_eager,
              "plain_bce_rel": rel_plain, "conv1_rel": rel_conv,
@@ -2739,9 +3323,17 @@ def serve_stack_phase(seed: int, dev: torch.device, card: str):
                                             as_uint8=True)[0][-1]
         seeds = [seed * 1000 + 100 + i for i in range(STACK_SEEDS)]
 
-        # (a) serial against coalesced, per seed, plain and seeded
+        # (a) serial against coalesced, per seed, plain and seeded. The
+        # runner's warm-up runs each tier's sweep eagerly, then captures
+        # it: the K1 calls its body makes, at each tier's M; every sweep
+        # after is a replay, which launches K1 without a call
         runner = cli._CoalescedRunner(svc, STACK_W)
+        del k1_m[:]
         runner.warm()
+        warm_m = list(k1_m)
+        check(warm_m == [GEN_SAMPLES] * (2 * GEN_BARS)
+              + [STACK_W * GEN_SAMPLES] * (2 * GEN_BARS),
+              f"warm-up: K1 Ms {sorted(set(warm_m))} x{len(warm_m)}")
         svc.warm(seeded=True)
         torch.cuda.synchronize()
         agree = {}
@@ -2759,10 +3351,11 @@ def serve_stack_phase(seed: int, dev: torch.device, card: str):
                 coal += runner.run([(cli.seed_generator(s, dev), sb)
                                     for s in seeds[i:i + STACK_W]])
             torch.cuda.synchronize()
-            check(k1_m == [STACK_W * GEN_SAMPLES] * (GEN_BARS * 2)
-                  and _kernels.LAUNCHES["first_conv_s2"] == len(k1_m),
-                  f"{name}: coalesced K1 Ms {sorted(set(k1_m))} "
-                  f"x{len(k1_m)}, launches {_kernels.LAUNCHES}")
+            check(not k1_m and _kernels.LAUNCHES["first_conv_s2"]
+                  == GEN_BARS * STACK_SEEDS // STACK_W,
+                  f"{name}: coalesced sweeps made K1 calls at Ms "
+                  f"{sorted(set(k1_m))} x{len(k1_m)} (replays make none), "
+                  f"launches {_kernels.LAUNCHES}")
             agree[name] = _agree(coal, refs, thr)
             log(f"serve_stack (a) {name}: serial vs --coalesce "
                 f"{STACK_W}, {STACK_SEEDS} seeds: {agree[name]}")
@@ -2771,14 +3364,14 @@ def serve_stack_phase(seed: int, dev: torch.device, card: str):
         lone = runner.run([(cli.seed_generator(seeds[0], dev), None)])
         full = runner.run([(cli.seed_generator(seeds[0], dev), None),
                            (cli.seed_generator(seeds[1], dev), None)])
-        tiers = {"k1_m": sorted(set(k1_m)), "k1_calls": len(k1_m),
+        tiers = {"k1_m_captured": sorted(set(warm_m)),
+                 "k1_calls": len(k1_m),
                  "launches": _kernels.LAUNCHES["first_conv_s2"],
                  "lone_equals_full": bool(np.array_equal(lone[0], full[0]))}
         log(f"serve_stack (a) tiers: lone then padded full: {tiers}")
-        check(k1_m == [GEN_SAMPLES] * GEN_BARS
-              + [STACK_W * GEN_SAMPLES] * GEN_BARS
-              and tiers["launches"] == 2 * GEN_BARS,
-              f"tiers: K1 Ms {k1_m}")
+        check(not k1_m and tiers["launches"] == 2 * GEN_BARS,
+              f"tiers: K1 calls at Ms {k1_m}, launches "
+              f"{tiers['launches']}")
         # the tiers compute at different batches: held by the flip rule
         tiers["lone_vs_full"] = _agree(full[:1], [(lone[0], _serial_reference(
             cfg, svc.model, dev, seeds[0], None)[1])], thr)
@@ -2848,20 +3441,27 @@ def serve_stack_phase(seed: int, dev: torch.device, card: str):
                 (old_got if j < 2 else new_got).append(bars)
                 (old_refs if j < 2 else new_refs).append(ref)
         ms_set = sorted(set(tcp_m))
+        k1_launches = runs["serve_stack"]["first_conv_s2"]
         tcp = {"launches": runs["serve_stack"], "k1_m": ms_set,
                "k1_calls": len(tcp_m),
-               "dispatches": len(tcp_m) // GEN_BARS,
+               "sweeps_run_by_the_body": len(tcp_m) // GEN_BARS,
+               "sweeps_launched": k1_launches // GEN_BARS,
                "push": pushes, "save_step2_ms": save_ms,
                "before_reload": _agree(old_got, old_refs, thr),
                "after_reload": _agree(new_got, new_refs, thr)}
         log(f"serve_stack (b) TCP --coalesce {STACK_W}, {STACK_CLIENTS} "
             f"clients, push reload: {tcp}")
-        check(runs["serve_stack"]["first_conv_s2"] == len(tcp_m)
+        # the body's K1 calls (the tiers' eager runs and captures, before
+        # and after the reload) come a sweep at a time, at the two tiers'
+        # Ms; every sweep launches K1 once a bar, the replays included
+        check(k1_launches % GEN_BARS == 0
+              and k1_launches // GEN_BARS >= -(-n_req // STACK_W)
               and len(tcp_m) % GEN_BARS == 0
               and all(len(set(tcp_m[i:i + GEN_BARS])) == 1
                       for i in range(0, len(tcp_m), GEN_BARS))
               and set(ms_set) == {GEN_SAMPLES, STACK_W * GEN_SAMPLES},
-              f"TCP: K1 calls {len(tcp_m)} at Ms {ms_set}")
+              f"TCP: K1 calls {len(tcp_m)} at Ms {ms_set}, launches "
+              f"{k1_launches}")
         out["tcp"] = tcp
 
         # (b') a reload pushed to a serial service (the stdin "reload"
@@ -3276,7 +3876,10 @@ def _conv1_shape_rows(g, dev, flush, row, c: int, cases) -> None:
                     flush),
             time_ms(k1b_library, flush),
             x.numel() + osize * dy.numel() + 4 * 2 * (w.numel() + b.numel()),
-            dy.numel() * (2 * 9 + 2 * 9 + 12))
+            dy.numel() * (2 * 9 + 2 * 9 + 12),
+            kernel_only_ms=kernel_only_ms(
+                lambda: conv1._backward(x, w, b, dy, True), flush,
+                "conv1_bwd"))
 
 
 def _shape_row(rows, phase, card, kernel, label, err, ms, plain, lib,
@@ -3812,7 +4415,6 @@ def patch_attn_phase(seed: int, dev: torch.device, card: str):
 
 PAR_STEPS = 20           # steps of each data-parallel run, in dispatches of
 PAR_K = 5                # PAR_K
-PAR_TIMED = 30           # steps of each streamed / resident timing run
 PAR_WORLD = 2            # gloo processes sharing the one card
 PAR_MODES = ("resident", "host_sharded", "sharded")
 PAR_FLAGS = {"resident": [], "host_sharded": ["--host-sharded"],
@@ -4188,12 +4790,8 @@ def _c1_bit_equality(seed: int, dev, card: str) -> dict:
             finally:
                 layers.per_slot = real
 
-        # in turns: at once, a slot at a time, a slot at a time, at once
-        whole = [at_once()]
         res = _kind_serve(name, cfg, model, dev, seed)
-        res["repeat"] = _kind_serve(name, cfg, model, dev, seed)
-        whole.append(at_once())
-        res["slots_at_once"] = whole
+        res["slots_at_once"] = at_once()
         runner = cli._CoalescedRunner(cli.Service(cfg, model), STACK_W)
         lone = runner.run([(cli.seed_generator(seed + 1, dev), None)])
         full = runner.run([(cli.seed_generator(seed + 1, dev), None),
@@ -4201,8 +4799,7 @@ def _c1_bit_equality(seed: int, dev, card: str) -> dict:
         res["lone_equals_full"] = bool(np.array_equal(lone[0], full[0]))
         log(f"parallel (e) {name} init weights, serial vs --coalesce "
             f"{STACK_W} ({card}): {res}")
-        check(res["bits_equal"] and res["repeat"]["bits_equal"]
-              and res["lone_equals_full"],
+        check(res["bits_equal"] and res["lone_equals_full"],
               f"{name}: coalesced bars differ from serial ones")
         out[name] = res
         del model, runner
@@ -4214,8 +4811,8 @@ def parallel_phase(seed: int, dev: torch.device, card: str):
     """A13's data-parallel half on the card at full width (c2_gru_4bar,
     bf16, 64 x 4, the corpus cache of ``make_bar_cache``): (a) streaming:
     K streamed steps equal K single steps bit for bit, ``train --stream``
-    through the CLI, streamed steps/s beside resident steps/s in turns,
-    and one K-stack's upload timed on its side stream; (b) an NCCL group
+    through the CLI, and one K-stack's upload timed on its side stream;
+    (b) an NCCL group
     of world size 1 through the MVAE_* variables, bit-equal to no group;
     (c) two processes sharing the card over gloo run ``train`` through
     the CLI, resident, host-sharded and sharded-corpus, in f32 and bf16,
@@ -4254,25 +4851,8 @@ def parallel_phase(seed: int, dev: torch.device, card: str):
         out["stream"]["cli"] = {"rc": rc, "final": o.strip()[-300:]}
         log(f"parallel (a) train --stream: {o.strip()[-300:]}, launches "
             f"{runs['parallel_stream']}")
-        timing = []
-        cfg_t = _par_config(seed, num_steps=PAR_TIMED)
-        for what in ("resident", "stream", "stream", "resident"):
-            data = ds if what == "resident" else ds.iterator(
-                cfg_t.train.batch_size, seed=seed, x_dtype=np.uint8)
-            _, m, rate, _ = _timed_train(cfg_t, data, dev)
-            timing.append({"path": what, "steps_per_s": rate,
-                           "loss": float(m["loss"])})
-        out["stream"]["timing"] = timing
-        log(f"parallel (a) steps/s in turns ({card}): {timing}")
-        # the upload against the host time of the dispatch it hides under
-        up = out["stream"]["upload"]
-        up["dispatch_host_ms"] = [PAR_K / t["steps_per_s"] * 1e3
-                                  for t in timing if t["path"] == "stream"]
-        up["copy_share_of_dispatch"] = (max(up["copy_stream_ms"])
-                                        / min(up["dispatch_host_ms"]))
-        log(f"parallel (a) upload overlap: copy {max(up['copy_stream_ms']):.3f}"
-            f" ms a stack at most, against {min(up['dispatch_host_ms']):.1f}"
-            f" ms of host time a dispatch")
+        # streamed against resident steps/s, and the producer's time a
+        # stack against a dispatch's: the train phase
 
         # (c), (d): the two gloo processes, with the card and the host to
         # themselves while they run (their steps/s are timed)
@@ -4977,17 +5557,19 @@ def main() -> int:
         details["reference"] = reference_check(args.seed, dev)
     if "serve" in only:
         mark("serve")
-        runs["serve"], details["serve"] = serve_phase(args.seed, dev)
+        serve_runs, details["serve"] = serve_phase(args.seed, dev, card)
+        runs.update(serve_runs)
     if "eval" in only:
         mark("eval")
-        runs["eval"], details["eval"] = eval_phase(args.seed, dev)
+        eval_runs, details["eval"] = eval_phase(args.seed, dev, card)
+        runs.update(eval_runs)
     if "fused_elbo" in only:
         mark("fused_elbo")
         runs["fused_elbo"], details["fused_elbo"] = fused_elbo_phase(
             args.seed, dev)
     if "train" in only:
         mark("train")
-        train_runs, details["train"] = train_phase(args.seed, dev)
+        train_runs, details["train"] = train_phase(args.seed, dev, card)
         runs.update(train_runs)
     if "ckpt" in only:
         mark("ckpt")

@@ -164,11 +164,12 @@ class _Weights:
     """One set of served weights with its sweep functions. A reload
     replaces the whole object in one assignment: a sweep that has read it
     finishes on the weights it started with, and no parameter is ever
-    written while a sweep reads it. The serial sweep's CUDA graphs belong
-    to ``generate``, so new weights come with graphs of their own,
-    captured at their second sweep a signature (under the TCP server's
-    device lock; a reload building its state in another thread may use
-    the card meanwhile: utils/graphs.py captures thread-locally)."""
+    written while a sweep reads it. The sweeps' CUDA graphs belong to
+    ``generate`` and ``coalesced``, so new weights come with graphs of
+    their own, captured at their second sweep a signature and width
+    (under the TCP server's device lock; a reload building its state in
+    another thread may use the card meanwhile: utils/graphs.py captures
+    thread-locally)."""
 
     def __init__(self, cfg: Config, model: PianoRollVAE, step: int):
         self.model, self.step = model, step
@@ -429,12 +430,18 @@ class _CoalescedRunner:
                        cfg.midi.num_pitches)
 
     def warm(self) -> None:
-        """Both tiers once, so no request pays a first call's set-up."""
-        item = (seed_generator(0, self.service.device), None,
-                *request_labels(self.service.cfg, {}, 0))
-        self.run([item])
-        if self.width > 1:
-            self.run([item] * 2)
+        """Both tiers twice, so no request pays a one-time set-up: a
+        tier's first sweep runs eagerly (the kernel build, cuDNN's
+        algorithm choice), its second captures its CUDA graph on the card
+        (``make_coalesced_generate_fn``). Weights a reload swaps in
+        capture theirs at their first requests."""
+        def item():
+            return (seed_generator(0, self.service.device), None,
+                    *request_labels(self.service.cfg, {}, 0))
+
+        for n in sorted({1, min(2, self.width)}):
+            for _ in range(2):
+                self.run([item() for _ in range(n)])
 
     def run(self, items) -> List[np.ndarray]:
         """items: [(generator, seed bar [T, P] uint8 or None, chord,

@@ -20,9 +20,10 @@ generator, seed bar and labels, as one [W·B]-batched sweep (``serve
 --coalesce``); ``seed_generator`` is the one map from a request's seed to
 its draws on every serve path.
 
-On the card ``make_generate_fn``'s sweep is a captured CUDA graph a
-signature (utils/graphs.py), replayed from its second call on; the
-coalesced sweep, the encode and the reconstruction run eagerly.
+On the card ``make_generate_fn``'s sweep, the coalesced sweep and the
+reconstruction are each a captured CUDA graph a signature
+(utils/graphs.py ``StaticProgram``), replayed from their second call on;
+the encode runs eagerly (a command encodes once or twice).
 """
 
 from __future__ import annotations
@@ -214,9 +215,10 @@ def make_generate_fn(cfg: Config, model: PianoRollVAE):
 
     Each signature (which arguments are given, their shapes and dtypes,
     whether a generator is) has its own static inputs and its own
-    generator, and runs as a ``graphs.Program``: on a CUDA device outside
-    ``utils/debug.py`` ``debug_mode`` its first sweep is eager, its second
-    is captured as one CUDA graph and every later one is a replay of it,
+    generator, and runs as a ``graphs.StaticProgram``: on a CUDA device
+    outside ``utils/debug.py`` ``debug_mode`` its first sweep is eager,
+    its second is captured as one CUDA graph and every later one is a
+    replay of it,
     as the JAX package jits one program a signature. A call copies the
     given tensors into the signature's buffers, sets the signature's
     generator to the caller's state, sweeps, leaves the caller's
@@ -243,42 +245,19 @@ def make_generate_fn(cfg: Config, model: PianoRollVAE):
                                       chord, key_sig, z_phrase0,
                                       z_phrase1)))
         given = {k: v for k, v in args.items() if v is not None}
-        key = (generator is not None,
-               tuple((k, tuple(v.shape), v.dtype) for k, v in given.items()))
+        drawing = [] if generator is None else [generator]
+        key = (len(drawing), graphs.signature(given))
         run = sweeps.get(key)
         if run is None:
-            run = sweeps[key] = _Sweep(body, cfg.gen.num_samples, dev,
-                                       given, generator is not None)
-        return run(generator, given)
+            run = sweeps[key] = graphs.StaticProgram(
+                lambda static, gens: body(
+                    cfg.gen.num_samples, gens[0] if gens else None,
+                    **{k: static.get(k) for k in _SWEEP_ARGS}),
+                dev, given, len(drawing))
+        return run(given, drawing)
 
     sweep.programs = sweeps
     return sweep
-
-
-class _Sweep:
-    """One argument signature's static inputs, generator and sweep
-    program (``make_generate_fn``)."""
-
-    def __init__(self, body, batch: int, dev: torch.device, given: dict,
-                 draws: bool):
-        self.static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
-                       for k, v in given.items()}
-        self.generator = torch.Generator(dev) if draws else None
-        kw = {k: self.static.get(k) for k in _SWEEP_ARGS}
-        self.program = graphs.Program(
-            lambda: body(batch, self.generator, **kw), dev,
-            () if self.generator is None else (self.generator,))
-
-    def __call__(self, generator: Optional[torch.Generator],
-                 given: dict) -> torch.Tensor:
-        for k, v in given.items():
-            self.static[k].copy_(v)
-        if generator is not None:
-            self.generator.set_state(generator.get_state())
-        bars = self.program().clone()
-        if generator is not None:
-            generator.set_state(self.generator.get_state())
-        return bars
 
 
 def make_coalesced_generate_fn(cfg: Config, model: PianoRollVAE):
@@ -301,10 +280,45 @@ def make_coalesced_generate_fn(cfg: Config, model: PianoRollVAE):
     same order (``sweep_draws``, then each bar's uniforms in Bernoulli
     mode), and gets the bars a lone sweep gives it: the sweep runs at
     batch W·B, and the attention core runs the ops whose rows depend on
-    the batch on the card a slot at a time (``layers.per_slot``)."""
+    the batch on the card a slot at a time (``layers.per_slot``).
+
+    Each width W and signature (which slots draw from a generator, the
+    shapes and dtypes of the seed bars and of the handed-in noises,
+    uniforms and labels) has its own static inputs and W generators of
+    its own, and runs as a ``graphs.StaticProgram``, as
+    ``make_generate_fn``'s sweep does: the draws, the slots'
+    concatenation, the sweep and the packing are one captured CUDA graph
+    on the card from its second call on. A call leaves each slot's
+    generator where its slot's draws left it. The generators must be W
+    distinct objects (or None). Not for two threads at once."""
     body = _sweep_body(cfg, model)
-    g = cfg.gen
+    b = cfg.gen.num_samples
     dev = next(model.parameters()).device
+    cond = cfg.model.kind == "cond"
+    programs: dict = {}
+
+    def program_body(w: int, drawing: Tuple[bool, ...]):
+        def run(static, gens):
+            own = iter(gens)
+            slot_gens = [next(own) if d else None for d in drawing]
+            slots = [sweep_draws(
+                cfg, b, gen, dev, static.get(("noises", i)),
+                static.get(("chords", i)), static.get(("key_sigs", i)))
+                for i, gen in enumerate(slot_gens)]
+            noise, chord, key_sig, z_phrase = (
+                None if parts[0] is None else
+                torch.cat(list(parts), dim=1 if j == 0 else 0)
+                for j, parts in enumerate(zip(*slots)))
+            u = (slot_gens if ("uniforms", 0) not in static else
+                 torch.cat([static[("uniforms", i)] for i in range(w)]))
+            seed_bars = static["seed_bars"]
+            bars = body(w * b, None,
+                        seed_bars.reshape(w * b, *seed_bars.shape[2:]),
+                        None, None, noise, u, chord, key_sig, z_phrase,
+                        slots=w)
+            packed = pack_bits(bars)
+            return packed.reshape(w, b, *packed.shape[1:])
+        return run
 
     @torch.inference_mode()
     def coalesced(generators: Sequence[Optional[torch.Generator]],
@@ -313,24 +327,27 @@ def make_coalesced_generate_fn(cfg: Config, model: PianoRollVAE):
                   uniforms: Optional[Sequence[torch.Tensor]] = None,
                   chords: Optional[Sequence] = None,
                   key_sigs: Optional[Sequence] = None) -> torch.Tensor:
-        w, b = len(generators), g.num_samples
-        slots = [sweep_draws(
-            cfg, b, gen, dev, None if noises is None else noises[i],
-            None if chords is None else chords[i],
-            None if key_sigs is None else key_sigs[i])
-            for i, gen in enumerate(generators)]
-        noise, chord, key_sig, z_phrase = (
-            None if parts[0] is None else
-            torch.cat(list(parts), dim=1 if j == 0 else 0)
-            for j, parts in enumerate(zip(*slots)))
-        u = list(generators) if uniforms is None else torch.cat(uniforms)
-        bars = body(w * b, None, seed_bars.reshape(w * b,
-                                                   *seed_bars.shape[2:]),
-                    None, None, noise, u, chord, key_sig, z_phrase,
-                    slots=w)
-        packed = pack_bits(bars)
-        return packed.reshape(w, b, *packed.shape[1:])
+        drawing = [gen for gen in generators if gen is not None]
+        if len({id(gen) for gen in drawing}) < len(drawing):
+            raise ValueError("a generator is given for two slots; each "
+                             "slot draws from its own")
+        given = {"seed_bars": seed_bars}
+        for name, values in (("noises", noises), ("uniforms", uniforms),
+                             ("chords", chords if cond else None),
+                             ("key_sigs", key_sigs if cond else None)):
+            for i, v in enumerate(values or ()):
+                if v is not None:
+                    given[(name, i)] = v
+        w = len(generators)
+        key = (w, tuple(gen is not None for gen in generators),
+               graphs.signature(given))
+        run = programs.get(key)
+        if run is None:
+            run = programs[key] = graphs.StaticProgram(
+                program_body(w, key[1]), dev, given, len(drawing))
+        return run(given, drawing)
 
+    coalesced.programs = programs
     return coalesced
 
 
@@ -374,20 +391,54 @@ def reconstruct_fn(cfg: Config, model: PianoRollVAE):
     """Reconstruction: (x [B, num_bars, T, P], generator=None, eps=None,
     chord=None, key_sig=None) → encode → posterior sample → teacher-forced
     decode → binarize, as f32 {0,1} [B, num_bars, T, P] (the reference's
-    eval-time reconstruct). ``eps``: each latent level's noise
-    (``vae.eps_shapes``), drawn from ``generator`` unless given; cond
-    takes the window's labels."""
+    eval-time reconstruct), a tensor of the caller's own. ``eps``: each
+    latent level's noise (``vae.eps_shapes``), drawn from ``generator``
+    unless given; cond takes the window's labels.
+
+    Each signature (the shapes and dtypes of the given tensors, whether
+    the generator draws) has its own static inputs and generator and runs
+    as a ``graphs.StaticProgram``, as ``make_generate_fn``'s sweep does:
+    one captured CUDA graph on the card from its second call on, the
+    caller's generator left where the draw leaves it. Not for two threads
+    at once."""
+    dev = next(model.parameters()).device
+    threshold = cfg.midi.binarize_threshold
+    programs: dict = {}
+
+    def body(static, gens):
+        x = static["x"]
+        eps = None
+        if ("eps", 0) in static:
+            eps = tuple(v for k, v in static.items()
+                        if isinstance(k, tuple))
+        logits, _ = model(
+            x, _posterior_noise(cfg, x, gens[0] if gens else None, eps),
+            chord=static.get("chord"), key_sig=static.get("key_sig"))
+        return binarize_logits(logits, threshold, model.pitch_mask)
 
     @torch.inference_mode()
     def reconstruct(x: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     eps=None, chord: Optional[torch.Tensor] = None,
                     key_sig: Optional[torch.Tensor] = None) -> torch.Tensor:
-        logits, _ = model(x, _posterior_noise(cfg, x, generator, eps),
-                          chord=chord, key_sig=key_sig)
-        return binarize_logits(logits, cfg.midi.binarize_threshold,
-                               model.pitch_mask)
+        if isinstance(eps, torch.Tensor):
+            eps = (eps,)
+        given = {"x": x}
+        given.update({("eps", i): e for i, e in enumerate(eps or ())})
+        if chord is not None:
+            given["chord"] = chord
+        if key_sig is not None:
+            given["key_sig"] = key_sig
+        drawing = ([generator] if generator is not None and eps is None
+                   else [])
+        key = (len(drawing), graphs.signature(given))
+        run = programs.get(key)
+        if run is None:
+            run = programs[key] = graphs.StaticProgram(body, dev, given,
+                                                       len(drawing))
+        return run(given, drawing)
 
+    reconstruct.programs = programs
     return reconstruct
 
 

@@ -36,11 +36,14 @@ What differs from the JAX package, and why:
   ``utils/debug.py`` ``debug_mode``, the resident K-step dispatch
   (``make_train_step_indexed_multi``) captures one step and replays it
   once a row of window ids, which an enqueued device copy puts in the
-  step's static input; its first step runs eagerly (the warm-up). The
-  streamed dispatch, runs with a process group (collectives) and
-  ``debug_mode`` run the same step eagerly, a Python loop with no host
-  synchronisation inside (no ``.item()``, no host-made tensors). Metrics
-  come back as device tensors and are read at log boundaries only.
+  step's static input, and the streamed dispatch
+  (``make_train_step_multi``) likewise a row of the uploaded stack; the
+  first step runs eagerly (the warm-up). The evals are graphs too
+  (utils/metrics.py ``make_eval_fn``). Runs with a process group
+  (collectives) and ``debug_mode`` run the same step eagerly, a Python
+  loop with no host synchronisation inside (no ``.item()``, no
+  host-made tensors). Metrics come back as device tensors and are read
+  at log boundaries only.
 - Noise comes from the state's ``torch.Generator`` on the device, in a
   fixed order each step: the transpose shifts, then each latent level's
   normals (``vae.draw_eps``: the phrase level, then the bar level, for
@@ -570,31 +573,46 @@ def make_train_step_multi(cfg: Config, model: PianoRollVAE,
     eps=None, shifts=None) → (state, last step's metrics as device
     tensors), every entry of ``stacked`` with a leading [K] axis; ``eps``
     [K, ...] a latent level, ``shifts`` [K,B]. The body is exactly the
-    single-step update, run eagerly once a row with no host
-    synchronisation in between.
+    single-step update over static inputs: before each step, enqueued
+    device copies put row j of each entry (and of ``eps`` and ``shifts``
+    when given) into them, with no host synchronisation in between.
 
     ``packed_x``: the batch carries the rolls bit-packed under "x_packed"
-    (uint8 [K,B,N,T,P/8], ops/pack.py), and each step unpacks its own
-    slice on the device to the uint8 rolls the resident path gathers: 8x
-    fewer bytes over the host link than uint8 rolls, 32x fewer than f32
-    (the streaming path)."""
-    single = _train_step_body(cfg, model, use_pallas, mesh)
+    (uint8 [K,B,N,T,P/8], ops/pack.py), and each step unpacks its row on
+    the device to the uint8 rolls the resident path gathers: 8x fewer
+    bytes over the host link than uint8 rolls, 32x fewer than f32 (the
+    streaming path).
 
-    def multi(state, stacked, eps=None, shifts=None):
-        metrics: Dict[str, torch.Tensor] = {}
-        if isinstance(eps, torch.Tensor):
-            eps = (eps,)
-        k = next(iter(stacked.values())).shape[0]
-        for j in range(k):
-            batch = {kk: v[j] for kk, v in stacked.items()}
+    On a CUDA device, with no process group and outside
+    ``utils/debug.py`` ``debug_mode``, the step runs as one captured CUDA
+    graph, as ``make_train_step_indexed_multi``'s does: the first step
+    eagerly, the second captured, each step after as a replay, bit for
+    bit an eager step; kept for the state and the shapes and dtypes of a
+    row of each per-step input. The stack's own tensors (made afresh for
+    each stack by the streaming producer) are read only by the row
+    copies, on the current stream; the graph reads its buffers. Not for
+    two threads at once."""
+    single = _train_step_body(cfg, model, use_pallas, mesh)
+    graphable = not (mesh is not None and mesh.group)
+    programs: Dict[tuple, _RowStep] = {}
+
+    def body(state):
+        def step(rows, eps, shifts):
+            batch = dict(rows)
             if packed_x:
                 batch["x"] = unpack_bits(batch.pop("x_packed"), torch.uint8)
-            state, metrics = single(
-                state, batch,
-                None if eps is None else tuple(e[j] for e in eps),
-                None if shifts is None else shifts[j])
-        return state, metrics
+            return single(state, batch, eps, shifts)[1]
+        return step
 
+    def multi(state, stacked, eps=None, shifts=None):
+        if isinstance(eps, torch.Tensor):
+            eps = (eps,)
+        key = _dispatch_key(state, {}, stacked, eps, shifts)
+        return state, _dispatch(programs, key, lambda: _RowStep(
+            body(state), state, stacked, eps, shifts, graphable),
+            stacked, eps, shifts)
+
+    multi.programs = programs
     return multi
 
 
@@ -670,29 +688,23 @@ def make_train_step_indexed_multi(cfg: Config, model: PianoRollVAE,
     ``debug_mode`` every step is eager. Not for two threads at once."""
     single = make_train_step_indexed(cfg, model, use_pallas, mesh)
     graphable = not (mesh is not None and mesh.group)
-    programs: Dict[tuple, _IndexedStep] = {}
+    programs: Dict[tuple, _RowStep] = {}
 
     def multi(state, data, idxs, eps=None, shifts=None):
         if isinstance(eps, torch.Tensor):
             eps = (eps,)
-        key = _dispatch_key(state, data, idxs, eps, shifts)
-        step = programs.get(key)
-        if step is None:
-            programs.clear()        # one signature's graph at a time
-            step = programs[key] = _IndexedStep(
-                single, state, data, idxs, eps, shifts, graphable)
-        metrics: Dict[str, torch.Tensor] = {}
-        for j in range(idxs.shape[0]):
-            metrics = step(j, idxs, eps, shifts)
-        # a replay's metrics are the graph's tensors, which the next
-        # dispatch overwrites
-        return state, {k: v.clone() for k, v in metrics.items()}
+        rows = {"idx": idxs}
+        key = _dispatch_key(state, data, rows, eps, shifts)
+        return state, _dispatch(programs, key, lambda: _RowStep(
+            lambda r, e, s: single(state, data, r["idx"], e, s)[1],
+            state, rows, eps, shifts, graphable), rows, eps, shifts)
 
     multi.programs = programs
     return multi
 
 
-def _dispatch_key(state: TrainState, data, idxs, eps, shifts) -> tuple:
+def _dispatch_key(state: TrainState, data: dict, rows: dict, eps,
+                  shifts) -> tuple:
     """What a captured step is bound to: the state (its tensors and
     generator, the optimizer's settings), the resident data tensors, and
     the shapes and dtypes of a row of each per-step input."""
@@ -708,36 +720,53 @@ def _dispatch_key(state: TrainState, data, idxs, eps, shifts) -> tuple:
              opt.mu_dtype),
             tuple((k, v.data_ptr(), tuple(v.shape), v.dtype)
                   for k, v in sorted(data.items())),
-            row(idxs), None if eps is None else tuple(map(row, eps)),
-            row(shifts))
+            tuple((k, row(v)) for k, v in sorted(rows.items())),
+            None if eps is None else tuple(map(row, eps)), row(shifts))
 
 
-class _IndexedStep:
-    """One dispatch signature's static inputs and the step that reads
-    them, a ``graphs.Program``: a call copies row j of the per-step
-    inputs into the buffers (enqueued device copies) and runs the step.
-    It keeps the state and the data it reads."""
+def _dispatch(programs: dict, key: tuple, make: Callable, rows: dict, eps,
+              shifts) -> Dict[str, torch.Tensor]:
+    """A dispatch's steps through the program of its ``key`` (made by
+    ``make``; one signature's program at a time): the last step's
+    metrics, copied (a replay's metrics are the graph's tensors, which
+    the next dispatch overwrites)."""
+    step = programs.get(key)
+    if step is None:
+        programs.clear()
+        step = programs[key] = make()
+    metrics: Dict[str, torch.Tensor] = {}
+    for j in range(next(iter(rows.values())).shape[0]):
+        metrics = step(j, rows, eps, shifts)
+    return {k: v.clone() for k, v in metrics.items()}
 
-    def __init__(self, single, state: TrainState, data, idxs, eps, shifts,
-                 graphable: bool):
+
+class _RowStep:
+    """One dispatch signature's static inputs, a row of each per-step
+    input (``rows`` by name, each latent level's noise, the shifts), and
+    the step that reads them, a ``graphs.Program``: a call copies row j
+    of each into its buffer (enqueued device copies) and runs
+    ``body(row buffers, noise buffers, shifts buffer)``. It keeps the
+    state."""
+
+    def __init__(self, body: Callable, state: TrainState, rows: dict, eps,
+                 shifts, graphable: bool):
         dev = state.step.device
-        self.state, self.data = state, data
+        self.state = state
 
         def buffer(t):
             return torch.empty(t.shape[1:], dtype=t.dtype, device=dev)
 
-        self.idx = buffer(idxs)
+        self.rows = {k: buffer(v) for k, v in rows.items()}
         self.eps = None if eps is None else tuple(map(buffer, eps))
         self.shifts = None if shifts is None else buffer(shifts)
+        self.program = graphs.Program(
+            lambda: body(self.rows, self.eps, self.shifts), dev,
+            (state.generator,), graphable)
 
-        def body():
-            return single(state, data, self.idx, self.eps, self.shifts)[1]
-
-        self.program = graphs.Program(body, dev, (state.generator,),
-                                      graphable)
-
-    def __call__(self, j: int, idxs, eps, shifts) -> Dict[str, torch.Tensor]:
-        self.idx.copy_(idxs[j])
+    def __call__(self, j: int, rows: dict, eps,
+                 shifts) -> Dict[str, torch.Tensor]:
+        for k, buf in self.rows.items():
+            buf.copy_(rows[k][j])
         if eps is not None:
             for buf, e in zip(self.eps, eps):
                 buf.copy_(e[j])
@@ -1114,7 +1143,11 @@ def train(cfg: Config,
                              max(1, len(eval_data) // eb))
 
         def run_eval() -> Dict[str, float]:
-            acc: Dict[str, list] = {}
+            # each model's eval is a graph a signature on the card; the
+            # noise is drawn outside it, from a generator a batch, and a
+            # batch's metrics come back to the host in one read
+            names: List[str] = []
+            rows = []
             for i in range(n_eval_batches):
                 batch = eval_data.batch(eval_perm[i * eb:(i + 1) * eb],
                                         x_dtype=np.uint8)
@@ -1125,10 +1158,13 @@ def train(cfg: Config,
                               for k in ("chord", "key_sig")}
                 eps = draw_eps(cfg.model, xb.shape[0],
                                torch.Generator(dev).manual_seed(i))
-                for prefix, fn in eval_fns:
-                    for mk, mv in fn(xb, eps, **labels).items():
-                        acc.setdefault(prefix + mk, []).append(float(mv))
-            return {mk: sum(mv) / len(mv) for mk, mv in acc.items()}
+                ms = [(prefix, fn(xb, eps, **labels))
+                      for prefix, fn in eval_fns]
+                names = [prefix + mk for prefix, m in ms for mk in m]
+                rows.append(torch.stack([mv for _, m in ms
+                                         for mv in m.values()]).tolist())
+            return {mk: sum(col) / len(col)
+                    for mk, col in zip(names, zip(*rows))}
 
         # the best eval loss so far persists beside the best checkpoint;
         # an unreadable sidecar means a fresh best. Process 0's is every

@@ -7,9 +7,10 @@ raises, naming the forward op that made it), and the train step checks
 that its loss is finite before the backward and raises FloatingPointError
 otherwise, as ``jax_debug_nans`` raises. The check reads the loss on the
 host every step, so it costs a synchronisation a step, and the train
-dispatch and the generation sweep run eagerly, not as captured CUDA graphs
-(utils/graphs.py). ``disable_jit`` runs them eagerly too, as
-``jax_disable_jit`` runs the JAX package's programs op by op.
+dispatches, the evals, the sweeps and the reconstruction run eagerly, not
+as captured CUDA graphs (utils/graphs.py). ``disable_jit`` runs them
+eagerly too, as ``jax_disable_jit`` runs the JAX package's programs op
+by op.
 """
 
 from __future__ import annotations

@@ -22,6 +22,19 @@ outputs of a replay are the graph's own tensors, which the next replay
 overwrites: a caller that keeps them copies them. A failure to capture or
 to replay raises; nothing falls back to the eager run.
 
+``StaticProgram`` is one argument signature of a function of tensors, the
+counterpart of one program of a jitted function: its static input buffers,
+generators of its own, and a ``Program`` over them; a call copies the
+arguments in and the generator states in and out, and returns a copy of
+the outputs.
+
+Every program on a device is warmed up and captured on the one capture
+stream, so graphs that launch the BCE sum kernels (K2, K4) share that
+stream's workspace (ops/fused_elbo.py ``_sum_workspace``). Replays, and
+warm-ups, are ordered on the caller's current stream: the programs of one
+thread never run two at once, and a process runs its programs from one
+thread at a time (the train loop, serve's device lock or batcher).
+
 Capture runs in ``thread_local`` mode: other threads (a serve reload
 building its state on the card, a checkpoint writer) may use the card
 while one thread captures. One thread runs a program at a time.
@@ -72,7 +85,8 @@ class Program:
     False runs it eagerly always (a body with collectives).
     ``info`` after the capture: ``capture_ms`` and ``instantiate_ms``
     (host clock) and ``pool_bytes``, the memory the device's allocator
-    reserved during the capture (the graph's private pool)."""
+    reserved during the capture (the graph's private pool); ``replays``
+    counts the replays."""
 
     def __init__(self, fn: Callable[[], Any], device: torch.device,
                  generators: Sequence[torch.Generator] = (),
@@ -84,6 +98,7 @@ class Program:
         self.outputs: Any = None
         self.launches: Dict[str, int] = {}
         self.info: Dict[str, float] = {}
+        self.replays = 0
         self._warm = False
 
     def __call__(self):
@@ -95,6 +110,7 @@ class Program:
                 return self._warm_up()
             self._capture()
         self.graph.replay()
+        self.replays += 1
         _kernels.count_replay(self.launches)
         return self.outputs
 
@@ -130,3 +146,54 @@ class Program:
                      "pool_bytes": torch.cuda.memory_reserved(self.device)
                      - reserved}
         self.graph, self.outputs, self.launches = graph, outputs, launches
+
+
+def signature(given: Dict[Any, torch.Tensor]) -> tuple:
+    """The key of a call's given tensors: each one's name, shape and
+    dtype."""
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in given.items())
+
+
+def _clone(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_clone(v) for v in out)
+    return out
+
+
+class StaticProgram:
+    """One argument signature of a function of tensors, run as a
+    ``Program``: ``body(static, generators)`` reads its inputs from
+    ``static``, buffers shaped as ``given``'s tensors (name → tensor), and
+    draws from ``generators``, ``draws`` generators of its own on
+    ``device``, registered with the graph. A call copies the given values
+    into the buffers (enqueued device copies), sets each own generator to
+    its caller's generator's state, runs the program, gives each caller's
+    generator the state its own reached, and returns a copy of the outputs
+    (a replay's outputs are the graph's, which the next replay overwrites).
+    The draws, and so the outputs, are an eager run's on the callers'
+    generators. Not for two threads at once."""
+
+    def __init__(self, body: Callable[[dict, list], Any],
+                 device: torch.device, given: Dict[Any, torch.Tensor],
+                 draws: int = 0):
+        dev = torch.device(device)
+        self.static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                       for k, v in given.items()}
+        self.generators = [torch.Generator(dev) for _ in range(draws)]
+        self.program = Program(lambda: body(self.static, self.generators),
+                               dev, self.generators)
+
+    def __call__(self, given: Dict[Any, torch.Tensor],
+                 generators: Sequence[torch.Generator] = ()):
+        for k, v in given.items():
+            self.static[k].copy_(v)
+        for own, g in zip(self.generators, generators, strict=True):
+            own.set_state(g.get_state())
+        out = _clone(self.program())
+        for own, g in zip(self.generators, generators):
+            g.set_state(own.get_state())
+        return out

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's utils/metrics.py: cell-level
 precision/recall/F1 of the binarized reconstruction, plus the one-sample
 ELBO terms. The unweighted masked-BCE sum goes through
-ops/fused_elbo.py ``masked_bce_sum`` (the kernel on the card).
+ops/fused_elbo.py ``masked_bce_sum`` (the kernel on the card). On the
+card the eval is a captured CUDA graph a signature (utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from musicvae_tpu_torch.config import Config
 from musicvae_tpu_torch.midi.tensorize import pitch_mask
 from musicvae_tpu_torch.ops import fused_elbo, losses
 from musicvae_tpu_torch.ops.binarize import binarize_logits
+from musicvae_tpu_torch.utils import graphs
 
 
 def recon_prf(recon_bin: torch.Tensor, x: torch.Tensor,
@@ -68,17 +70,45 @@ def eval_metrics(cfg: Config, logits: torch.Tensor, x: torch.Tensor,
 
 def make_eval_fn(cfg: Config, model):
     """Eval: (x [B,N,T,P], eps, weights=None, chord=None, key_sig=None) →
-    {loss, recon, kl, precision, recall, f1} as 0-d f32 tensors, from the
-    one-sample ELBO with the posterior noise ``eps`` given by the caller
-    (one tensor a latent level, models/vae.py ``eps_shapes``). A cond
-    model takes the window labels chord [B,N] and key_sig [B]."""
+    {loss, recon, kl, precision, recall, f1} as 0-d f32 tensors of the
+    caller's own, from the one-sample ELBO with the posterior noise
+    ``eps`` given by the caller (one tensor a latent level, models/vae.py
+    ``eps_shapes``). A cond model takes the window labels chord [B,N] and
+    key_sig [B].
+
+    Each signature (x's shape and dtype, each noise level's, and which of
+    ``weights`` and the labels are given, with theirs) has its own static
+    inputs and runs as a ``graphs.StaticProgram``: one captured CUDA
+    graph on the card from its second call on, as the JAX package jits
+    its eval. Not for two threads at once."""
+    dev = next(model.parameters()).device
+    programs: dict = {}
+
+    def body(static, _):
+        x = static["x"]
+        eps = tuple(v for k, v in static.items() if isinstance(k, tuple))
+        logits, latents = model(x, eps, chord=static.get("chord"),
+                                key_sig=static.get("key_sig"))
+        return eval_metrics(cfg, logits, x, latents, static.get("weights"))
 
     @torch.inference_mode()
     def eval_fn(x: torch.Tensor, eps,
                 weights: Optional[torch.Tensor] = None,
                 chord: Optional[torch.Tensor] = None,
                 key_sig: Optional[torch.Tensor] = None):
-        logits, latents = model(x, eps, chord=chord, key_sig=key_sig)
-        return eval_metrics(cfg, logits, x, latents, weights)
+        if isinstance(eps, torch.Tensor):
+            eps = (eps,)
+        given = {"x": x}
+        given.update({("eps", i): e for i, e in enumerate(eps)})
+        for k, v in (("weights", weights), ("chord", chord),
+                     ("key_sig", key_sig)):
+            if v is not None:
+                given[k] = v
+        key = graphs.signature(given)
+        run = programs.get(key)
+        if run is None:
+            run = programs[key] = graphs.StaticProgram(body, dev, given)
+        return run(given)
 
+    eval_fn.programs = programs
     return eval_fn

@@ -16,7 +16,6 @@ a captured CUDA graph reads on the card:
   eager (the CPU, ``debug_mode``).
 """
 
-import contextlib
 import dataclasses
 import threading
 
@@ -30,65 +29,10 @@ from musicvae_tpu.train import trainer as jtrainer
 from musicvae_tpu_torch.ops import _kernels
 from musicvae_tpu_torch.train import trainer
 from musicvae_tpu_torch.utils import debug_mode, graphs
-from torch_port_helpers import (bar_dataset, jax_params, kind_pair,
+from torch_port_helpers import (FAMILIES, HostRead, bar_dataset,
+                                family_config, jax_params, no_host_reads,
                                 one_torch_thread,  # noqa: F401
-                                patch_pair, port_model, same_state,
-                                tiny_pair)
-
-FAMILIES = ("c2_gru_4bar", "c1_conv_bar", "c3_hier_16bar", "c4_cond",
-            "c2_trf", "c2_mxu")
-TRAIN_KW = dict(batch_size=2, log_every=2, ckpt_every=0, eval_every=0,
-                beta_warmup_steps=4, seed=3)
-
-
-def family_config(name: str, **train_kw):
-    """The port's config ``name`` at the tiny widths its family's tests
-    use, with a short-run TrainSpec."""
-    _, tc = (patch_pair(name) if name in ("c2_trf", "c2_mxu")
-             else kind_pair(name))
-    return tc.replace(train=dataclasses.replace(
-        tc.train, **{**TRAIN_KW, **train_kw}))
-
-
-class HostRead(AssertionError):
-    pass
-
-
-@contextlib.contextmanager
-def no_host_reads():
-    """Inside: reading a tensor back to the host (``item``, ``bool``,
-    ``float``, ``int``, ``index``, ``tolist``, ``numpy``, ``cpu``) and
-    making a tensor from host data (``torch.tensor``, ``from_numpy``,
-    ``as_tensor`` of anything but a tensor) raise HostRead. On the card
-    the first waits for the device and the second copies from pageable
-    memory: neither can be captured in a CUDA graph."""
-    def refuse(name):
-        def fn(*a, **kw):
-            raise HostRead(name)
-        return fn
-
-    real_as_tensor = torch.as_tensor
-
-    def as_tensor(data, *a, **kw):
-        if not isinstance(data, torch.Tensor):
-            raise HostRead("torch.as_tensor of host data")
-        return real_as_tensor(data, *a, **kw)
-
-    patches = [(torch.Tensor, m, refuse(f"Tensor.{m}"))
-               for m in ("item", "__bool__", "__float__", "__int__",
-                         "__index__", "tolist", "numpy", "cpu")]
-    patches += [(torch, "tensor", refuse("torch.tensor")),
-                (torch, "from_numpy", refuse("torch.from_numpy")),
-                (torch, "as_tensor", as_tensor)]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-    for obj, name, fn in patches:
-        setattr(obj, name, fn)
-    try:
-        yield
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
-
+                                port_model, same_state, tiny_pair)
 
 def _resident(cfg, ds):
     data = {"bars": torch.from_numpy(ds.bars),

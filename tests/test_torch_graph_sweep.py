@@ -24,8 +24,8 @@ import torch
 from musicvae_tpu_torch.config import GenSpec
 from musicvae_tpu_torch.generate import sampler
 from musicvae_tpu_torch.models.vae import build_model
-from test_torch_graph_dispatch import FAMILIES, family_config, no_host_reads
-from torch_port_helpers import one_torch_thread  # noqa: F401
+from torch_port_helpers import (FAMILIES, family_config, no_host_reads,
+                                one_torch_thread)  # noqa: F401
 
 SAMPLES, BARS = 2, 3
 

@@ -3,6 +3,7 @@ tiny f32 configs, one set of random weights in both packages, and jitted
 JAX calls (op-by-op dispatch of an unjitted flax apply costs seconds of
 compiles on the CPU backend)."""
 
+import contextlib
 import dataclasses
 import functools
 
@@ -314,3 +315,74 @@ def jax_train_state(jc, params, seed: int = 0):
     return jtrainer.TrainState(
         params=params, opt_state=jtrainer.make_optimizer(jc).init(params),
         step=jnp.zeros((), jnp.int32), rng=jax.random.key(seed))
+
+
+# -- the compiled programs (tests/test_torch_graph_*.py) ----------------------
+
+# one config of each model family at its tiny widths: the conv stem with
+# the GRU (c2), the conv bar VAE, hier, cond, attention, the patch stem
+FAMILIES = ("c2_gru_4bar", "c1_conv_bar", "c3_hier_16bar", "c4_cond",
+            "c2_trf", "c2_mxu")
+
+
+def family_config(name: str, **train_kw):
+    """The port's config ``name`` at the tiny widths its family's tests
+    use, with a short-run TrainSpec (``TRAIN_KW``, then ``train_kw``)."""
+    _, tc = (patch_pair(name) if name in ("c2_trf", "c2_mxu")
+             else kind_pair(name))
+    return tc.replace(train=dataclasses.replace(
+        tc.train, **{**TRAIN_KW, **train_kw}))
+
+
+class HostRead(AssertionError):
+    pass
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Inside: reading a tensor back to the host (``item``, ``bool``,
+    ``float``, ``int``, ``index``, ``tolist``, ``numpy``, ``cpu``) and
+    making a tensor from host data (``torch.tensor``, ``from_numpy``,
+    ``as_tensor`` of anything but a tensor) raise HostRead. On the card
+    the first waits for the device and the second copies from pageable
+    memory: neither can be captured in a CUDA graph."""
+    def refuse(name):
+        def fn(*a, **kw):
+            raise HostRead(name)
+        return fn
+
+    real_as_tensor = torch.as_tensor
+
+    def as_tensor(data, *a, **kw):
+        if not isinstance(data, torch.Tensor):
+            raise HostRead("torch.as_tensor of host data")
+        return real_as_tensor(data, *a, **kw)
+
+    patches = [(torch.Tensor, m, refuse(f"Tensor.{m}"))
+               for m in ("item", "__bool__", "__float__", "__int__",
+                         "__index__", "tolist", "numpy", "cpu")]
+    patches += [(torch, "tensor", refuse("torch.tensor")),
+                (torch, "from_numpy", refuse("torch.from_numpy")),
+                (torch, "as_tensor", as_tensor)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+class HandedEps:
+    """A flax model whose latent noise is handed in: ``apply`` ignores its
+    PRNG keys and runs the model with ``eps`` (one array a latent level),
+    so a JAX function that draws the noise inside (eval, reconstruct)
+    takes the port's."""
+
+    def __init__(self, jmodel, eps):
+        self.jmodel = jmodel
+        self.eps = tuple(jnp.asarray(e) for e in eps)
+
+    def apply(self, variables, x, rngs=None, **kw):
+        return self.jmodel.apply(variables, x, eps=self.eps, **kw)
