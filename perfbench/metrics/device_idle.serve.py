@@ -1,0 +1,10 @@
+"""The share of the traced window in which no operation ran on the card,
+profiled inside the server process: 1 − (the union of the device's kernel
+and copy intervals) / window."""
+
+
+def read(run):
+    t = run.trace
+    if not t.get("window_s"):
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
