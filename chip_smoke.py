@@ -11,9 +11,19 @@ check does not hold:
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the build of the hand-written kernels from csrc/;
-2. kernels: each of the seven kernels against its plain PyTorch version on
+2. kernels: each of the seven TPU kernels' ports against its plain PyTorch version on
    the card, at the shapes the main path gives it and at ragged ones, then
    timed beside its bound, its plain version and one library call;
+2b. epilogue: the conv epilogue (ops/conv_epilogue.py): one eager train
+   step of c2_gru_4bar and c3_hier_16bar (first-conv kernels on) and of
+   c2_mxu at registered width launches its forward and backward kernels
+   once for every conv and transposed conv of the pyramid (13 + 13; 9 + 9
+   for c2_mxu) and never the plain versions; each of those layers'
+   shapes on seeded inputs against the plain versions (forward and dc
+   within 1 bf16 ulp, the share not bit-equal printed, dc zero on the
+   cropped edge, db within 1 ulp and 1e-5 of the channel's absolute sum),
+   then timed from a cold L2 beside the plain versions and the byte
+   bound, summed over a step;
 3. reference: the model in f32 on the card against the same weights on
    the CPU (the path the CPU tests hold against the JAX package);
 4. serve: full-width c2_gru_4bar (bf16, first-conv kernel on, seeded
@@ -55,7 +65,9 @@ check does not hold:
    without deterministic algorithms, with the capture and instantiate
    times and the graph's pool; a steady graph dispatch is K graph
    launches and no kernel launched from the step body, and its kernels
-   by name (torch.profiler) are the launches the wrappers counted. Then
+   by name (torch.profiler) are the launches the wrappers counted, the
+   conv epilogue's 13 + 13 a step with the first-conv kernels (15 + 15
+   without) among them, graph and eager. Then
    the streamed dispatch (``train --stream``'s) as a captured graph:
    ``train()`` on an iterator (20 steps in dispatches of 5 behind the
    producer thread) and 20 one-step streamed dispatches equal 20 eager
@@ -1498,7 +1510,9 @@ def _coalesced_graph_checks(cfg, model, service, seeds, dev, card: str):
           f"coalesced: programs {out['programs']}")
     check(out["programs"][str(COALESCE_W)]["replays"] == 1 + COALESCE_ROUNDS
           and out["programs"][str(COALESCE_W)]["launches_per_replay"]
-          == {"first_conv_s2": cfg.gen.num_bars},
+          == {"first_conv_s2": cfg.gen.num_bars,
+              # a bar: the previous bar's trunk (4 convs) and the head (5)
+              "conv_epilogue": 9 * cfg.gen.num_bars},
           f"coalesced: {out['programs']}")
     check(launches["first_conv_s2"] == cfg.gen.num_bars * (4 + len(rounds)),
           f"coalesced: K1 launched {launches['first_conv_s2']} times in "
@@ -1704,7 +1718,8 @@ def _eval_graph_checks(cfg, seed: int, dev, card: str):
         check(out[name]["graphed"]
               and out[name]["replays"] == EVAL_BATCHES - 1
               and out[name]["launches_per_replay"]
-              == {"first_conv_s2": 2, "masked_bce_sum": 1},
+              == {"first_conv_s2": 2, "masked_bce_sum": 1,
+                  "conv_epilogue": 13},
               f"eval {name}: {out[name]}")
     check(launches["masked_bce_sum"] == 2 * EVAL_BATCHES
           and launches["first_conv_s2"] == 4 * EVAL_BATCHES,
@@ -1772,7 +1787,8 @@ def _reconstruct_graph_checks(cfg, model, seed: int, dev, card: str):
     check(out["bits_equal"] and out["generators_equal"],
           "reconstruct: the graph's windows differ from eager ones")
     check(out["graphed"] and out["replays"] == RECON_WINDOWS - 1
-          and out["launches_per_replay"] == {"first_conv_s2": 2},
+          and out["launches_per_replay"] == {"first_conv_s2": 2,
+                                             "conv_epilogue": 13},
           f"reconstruct: {out}")
     check(0.0 < out["density"] < 1.0, f"reconstruct: density "
                                       f"{out['density']}")
@@ -2045,14 +2061,18 @@ def _dispatch_trace(fn, attempts: int = 3):
 
 
 def _traced_kernels_agree(names: dict, counted: dict) -> bool:
-    """Whether a trace holds as many K4, K1 and K1b kernels by name as
-    their wrappers counted launches for the traced call."""
+    """Whether a trace holds as many K4, K1, K1b and conv epilogue kernels
+    by name as their wrappers counted launches for the traced call."""
     return (_kernel_calls(names, "bce_sum<")
             >= counted["masked_bce_sum_dual"]
             and _kernel_calls(names, "conv1_kernel")
             == counted["first_conv_s2"]
             and _kernel_calls(names, "conv1_bwd_kernel")
-            == counted["first_conv_s2_bwd"])
+            == counted["first_conv_s2_bwd"]
+            and _kernel_calls(names, "conv_epilogue_fwd")
+            == counted["conv_epilogue"]
+            and _kernel_calls(names, "conv_epilogue_bwd")
+            == counted["conv_epilogue_bwd"])
 
 
 def _runtime_calls(calls: dict, prefix: str) -> int:
@@ -2201,7 +2221,11 @@ def _stream_graph_checks(cfg, ds, dev, seed: int, card: str):
               "replays", "launches_per_replay")),
           f"streamed graph and eager training differ: {out}")
     check(out["replays"] == TRAIN_STEPS - 1
-          and out["launches_per_replay"] == {"masked_bce_sum_dual": 1},
+          # the first conv through cuDNN too: 5 convs a trunk and 5
+          # transposed convs, each way
+          and out["launches_per_replay"] == {"masked_bce_sum_dual": 1,
+                                             "conv_epilogue": 15,
+                                             "conv_epilogue_bwd": 15},
           f"streamed dispatch: {out['replays']} replays, "
           f"{out['launches_per_replay']} a replay")
     del model_e, state_e, model_g, state_g, multi_1, state_t
@@ -2507,6 +2531,10 @@ def train_phase(seed: int, dev: torch.device, card: str):
                    "k4_kernels": _kernel_calls(names, "bce_sum<"),
                    "k1_kernels": _kernel_calls(names, "conv1_kernel"),
                    "k1b_kernels": _kernel_calls(names, "conv1_bwd_kernel"),
+                   "epilogue_kernels": _kernel_calls(names,
+                                                     "conv_epilogue_fwd"),
+                   "epilogue_bwd_kernels": _kernel_calls(
+                       names, "conv_epilogue_bwd"),
                    "counted": {k: v for k, v in counted.items() if v}}}
         check(out["graphed"] == graph, f"graphed {out['graphed']}, asked "
                                        f"{graph}")
@@ -2566,6 +2594,18 @@ def train_phase(seed: int, dev: torch.device, card: str):
             check(d["graph_launches"] == 0, f"{name}: eager dispatch "
                                             f"launched a graph")
         conv1 = name.startswith("conv1")
+        # every conv and transposed conv of the stem and head once a step
+        # each way: 13 with the first-conv kernel (the benchmark's c2
+        # cell), 15 where the first conv of each trunk takes cuDNN too
+        epilogue = TRAIN_K * (EPI_LAUNCHES["c2_gru_4bar"]
+                              + (0 if conv1 else 2))
+        check(d["counted"].get("conv_epilogue") == epilogue
+              and d["counted"].get("conv_epilogue_bwd") == epilogue
+              and d["epilogue_kernels"] == epilogue
+              and d["epilogue_bwd_kernels"] == epilogue,
+              f"{name}: {epilogue} conv epilogue launches each way expected "
+              f"in a dispatch of {TRAIN_K} steps, the profiler's kernels "
+              f"and the counts: {d}")
         check(d["k4_kernels"] == TRAIN_K
               and d["k1_kernels"] == (2 * TRAIN_K if conv1 else 0)
               and d["k1b_kernels"] == (2 * TRAIN_K if conv1 else 0)
@@ -4320,8 +4360,13 @@ def patch_attn_phase(seed: int, dev: torch.device, card: str):
             torch.cuda.synchronize()
             gen_launches = dict(_kernels.LAUNCHES)
             counted(gen_launches)
+            # no TPU kernel's port; the conv epilogue once a conv of the
+            # previous bar's trunk and of the head (its output conv too) a bar
+            epilogue = (len(cfg.model.enc_channels)
+                        + len(cfg.model.dec_channels)) * GEN_BARS
             check(tuple(bars.shape) == (GEN_SAMPLES, GEN_BARS, 96, 128)
-                  and sum(gen_launches.values()) == 0,
+                  and gen_launches == {**dict.fromkeys(gen_launches, 0),
+                                       "conv_epilogue": epilogue},
                   f"{name}: generated {tuple(bars.shape)}, launches "
                   f"{gen_launches}")
             res["generate"] = {"density": float(bars.float().mean())}
@@ -5505,9 +5550,199 @@ def profile_phase(seed: int, dev: torch.device):
     return out
 
 
-PHASES = ("kernels", "reference", "serve", "eval", "fused_elbo", "train",
-          "ckpt", "corpus", "serve_stack", "kinds", "patch_attn", "parallel",
-          "tp")
+# -- the conv epilogue -----------------------------------------------------------
+
+EPI_CONFIGS = ("c2_gru_4bar", "c3_hier_16bar", "c2_mxu")
+EPI_LAUNCHES = {"c2_gru_4bar": 13, "c3_hier_16bar": 13, "c2_mxu": 9}
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a − b| in bf16 ulps, elementwise (f32 tensors of bf16 values are
+    compared as bf16: exact)."""
+    def ordered(t):
+        i = t.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _epilogue_layers(cfg, dev, seed: int):
+    """One eager train step of ``cfg`` at its registered width on the card:
+    the launches of the epilogue kernels a step, the plain versions'
+    calls, and each ``conv_epilogue`` call's (c shape, crop, gelu,
+    out_dtype) with its count."""
+    from musicvae_tpu_torch.models import layers
+    from musicvae_tpu_torch.ops import _kernels, conv_epilogue as ce
+    from musicvae_tpu_torch.train import trainer
+
+    calls, plain = {}, {"fwd": 0, "bwd": 0}
+    fn, ref, bwd_ref = (ce.conv_epilogue, ce.conv_epilogue_ref,
+                        ce.conv_epilogue_bwd_ref)
+
+    def recorded(c, b, crop=None, gelu=True, out_dtype=None):
+        key = (tuple(c.shape), crop, gelu, out_dtype or c.dtype)
+        calls[key] = calls.get(key, 0) + 1
+        return fn(c, b, crop, gelu, out_dtype)
+
+    def counted(kind, f):
+        def wrapped(*a, **kw):
+            plain[kind] += 1
+            return f(*a, **kw)
+        return wrapped
+
+    model, state = trainer.create_state(cfg, device=dev, seed=seed)
+    b, n = cfg.train.batch_size, cfg.model.num_bars
+    g = torch.Generator(dev).manual_seed(seed + 11)
+    x = (torch.rand((b, n, 96, 128), generator=g, device=dev)
+         < 0.08).to(torch.uint8)
+    step = trainer._train_step_body(cfg, model)
+    ce.conv_epilogue = recorded
+    ce.conv_epilogue_ref = counted("fwd", ref)
+    ce.conv_epilogue_bwd_ref = counted("bwd", bwd_ref)
+    try:
+        with trainer.deterministic_algorithms():
+            before = dict(_kernels.LAUNCHES)
+            _, metrics = step(state, {"x": x})
+            torch.cuda.synchronize()
+    finally:
+        ce.conv_epilogue = fn
+        ce.conv_epilogue_ref, ce.conv_epilogue_bwd_ref = ref, bwd_ref
+    launches = {k: _kernels.LAUNCHES[k] - before[k]
+                for k in ("conv_epilogue", "conv_epilogue_bwd")}
+    check(bool(torch.isfinite(metrics["loss"])), f"{cfg.name}: loss not "
+                                                 f"finite")
+    del model, state, step, x
+    return launches, plain, calls
+
+
+def _epilogue_case(c, b, dy, crop, gelu, out_dtype) -> dict:
+    """The kernels against the plain versions on one layer's inputs: the
+    forward within 1 bf16 ulp (the share not bit-equal), dc within 1 ulp
+    and zero on the cropped edge, db within 1 bf16 ulp of the reference
+    plus 1e-5 of the channel's absolute sum of dc (the order of an f32 sum
+    over ~10^6 terms)."""
+    from musicvae_tpu_torch.ops import conv_epilogue as ce
+
+    ho, wo = crop or tuple(c.shape[2:])
+    y = ce._forward(c, b, crop, gelu, out_dtype)
+    y_ref = ce.conv_epilogue_ref(c, b, crop, gelu, out_dtype)
+    dc, db = ce._backward(c, b, dy, crop, gelu)
+    dc_ref, db_ref = ce.conv_epilogue_bwd_ref(c, b, dy, crop, gelu)
+    torch.cuda.synchronize()
+    fwd_ulps = _bf16_ulps(y.float(), y_ref.float())
+    dc_ulps = _bf16_ulps(dc.float(), dc_ref.float())
+    edge = torch.cat([dc[:, :, ho:].flatten(), dc[:, :, :, wo:].flatten()])
+    scale = dc_ref.float().abs().sum((0, 2, 3))
+    db_err = (db.float() - db_ref.float()).abs()
+    db_tol = db_ref.float().abs() * 2.0 ** -7 + 1e-5 * scale
+    out = {"c": list(c.shape), "crop": [ho, wo], "gelu": gelu,
+           "out": str(out_dtype).split(".")[-1],
+           "fwd_max_ulp": int(fwd_ulps.max()),
+           "fwd_not_bit_equal": float((fwd_ulps > 0).float().mean()),
+           "dc_max_ulp": int(dc_ulps.max()),
+           "dc_not_bit_equal": float((dc_ulps > 0).float().mean()),
+           "edge_nonzero": int((edge != 0).sum()),
+           "db_max_err_over_tol": float((db_err / db_tol).max()),
+           "db_max_rel": float((db_err / db_ref.float().abs().clamp_min(
+               1e-30)).max())}
+    check(out["fwd_max_ulp"] <= 1, f"epilogue forward off by "
+                                   f"{out['fwd_max_ulp']} ulp: {out}")
+    check(out["dc_max_ulp"] <= 1, f"epilogue dc off by {out['dc_max_ulp']} "
+                                  f"ulp: {out}")
+    check(out["edge_nonzero"] == 0, f"epilogue dc not zero on the cropped "
+                                    f"edge: {out}")
+    check(out["db_max_err_over_tol"] <= 1.0, f"epilogue db outside its "
+                                             f"tolerance: {out}")
+    return out
+
+
+def _epilogue_bytes(shape, crop, gelu, out_dtype, dt) -> tuple:
+    """(forward, backward) bytes of one layer: each input byte read once
+    and each output byte written once (forward: c over the kept grid, the
+    bias, y; backward: dy, dc over the whole grid, db, and with the GELU c
+    over the kept grid and the bias)."""
+    n, ch, hc, wc = shape
+    ho, wo = crop or (hc, wc)
+    e, o = torch.finfo(dt).bits // 8, torch.finfo(out_dtype).bits // 8
+    kept = n * ho * wo * ch
+    full = n * hc * wc * ch
+    return (kept * (e + o) + ch * e,
+            kept * o + full * e + ch * e + (kept * e + ch * e if gelu else 0))
+
+
+def epilogue_phase(seed: int, dev: torch.device, card: str):
+    """The conv epilogue (ops/conv_epilogue.py, csrc/conv_epilogue.cu): one
+    eager train step of c2_gru_4bar, c3_hier_16bar (first-conv kernels
+    on) and c2_mxu at registered width launches the forward and backward
+    kernels once for every conv and transposed conv of the pyramid (13 +
+    13 for c2 and c3, 9 + 9 for c2_mxu) and never the plain versions;
+    then each of those layers' shapes, on seeded inputs, against the plain
+    versions (``_epilogue_case``), and timed from a cold L2 with their
+    plain versions (ATen's chain itself) beside their byte bound, summed
+    over a step."""
+    import dataclasses
+
+    from musicvae_tpu_torch.config import get_config
+    from musicvae_tpu_torch.ops import conv_epilogue as ce
+
+    out = {"card": card}
+    flush = torch.empty(2 ** 26, dtype=torch.float32, device=dev)
+    for name in EPI_CONFIGS:
+        cfg = get_config(name)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    use_pallas_conv1=True))
+        launches, plain, calls = _epilogue_layers(cfg, dev, seed)
+        want = EPI_LAUNCHES[name]
+        log(f"epilogue {name}: launches a train step {launches}, plain "
+            f"calls {plain}, layers {len(calls)}")
+        check(launches == {"conv_epilogue": want, "conv_epilogue_bwd": want},
+              f"{name}: epilogue launches {launches} a step, expected "
+              f"{want} each way")
+        check(plain == {"fwd": 0, "bwd": 0}, f"{name}: the plain epilogue "
+                                             f"ran on the card: {plain}")
+        g = torch.Generator(dev).manual_seed(seed + 13)
+        rows, step = [], {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                          "fwd_ms": 0.0, "bwd_ms": 0.0}
+        for (shape, crop, gelu, out_dtype), count in calls.items():
+            n, ch, hc, wc = shape
+            ho, wo = crop or (hc, wc)
+            dt = get_config(name).model.dtype
+            dt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+            c = (1.5 * torch.randn((n, hc, wc, ch), generator=g,
+                                   device=dev)).to(dt).permute(0, 3, 1, 2)
+            b = (0.5 * torch.randn(ch, generator=g, device=dev)).to(dt)
+            dy = (0.01 * torch.randn((n, ho, wo, ch), generator=g,
+                                     device=dev)).to(out_dtype)
+            case = _epilogue_case(c, b, dy, crop, gelu, out_dtype)
+            fwd_ms = time_ms(lambda: ce._forward(c, b, crop, gelu, out_dtype),
+                             flush)
+            bwd_ms = time_ms(lambda: ce._backward(c, b, dy, crop, gelu), flush)
+            plain_ms = time_ms(lambda: (
+                ce.conv_epilogue_ref(c, b, crop, gelu, out_dtype),
+                ce.conv_epilogue_bwd_ref(c, b, dy, crop, gelu)), flush,
+                iters=10)
+            fb, bb = _epilogue_bytes(shape, crop, gelu, out_dtype, dt)
+            bound = bound_ms(fb + bb, 0)[0]
+            case.update(count=count, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                        plain_ms=plain_ms, bound_ms=bound,
+                        roofline_pct=100 * bound / (fwd_ms + bwd_ms))
+            log(f"  {name} {case}")
+            rows.append(case)
+            step["fwd_ms"] += count * fwd_ms
+            step["bwd_ms"] += count * bwd_ms
+            step["kernel_ms"] += count * (fwd_ms + bwd_ms)
+            step["plain_ms"] += count * plain_ms
+            step["bound_ms"] += count * bound
+            del c, b, dy
+        step["roofline_pct"] = 100 * step["bound_ms"] / step["kernel_ms"]
+        log(f"epilogue {name} a train step: {step}")
+        out[name] = {"launches": launches, "layers": rows, "step": step}
+        torch.cuda.empty_cache()
+    return out
+
+
+PHASES = ("kernels", "epilogue", "reference", "serve", "eval", "fused_elbo",
+          "train", "ckpt", "corpus", "serve_stack", "kinds", "patch_attn",
+          "parallel", "tp")
 
 
 def _card_settings() -> None:
@@ -5564,6 +5799,9 @@ def main() -> int:
     if "kernels" in only:
         mark("kernels")
         entries, details["kernel_checks"] = kernel_checks(args.seed, dev)
+    if "epilogue" in only:
+        mark("epilogue")
+        details["epilogue"] = epilogue_phase(args.seed, dev, card)
     if "reference" in only:
         mark("reference")
         details["reference"] = reference_check(args.seed, dev)

@@ -12,8 +12,10 @@ oracle, mirror their flax names (checkpoints/convert.py lists them).
 Dtypes follow flax's ``dtype``/``param_dtype``: parameters stay f32, and
 each layer casts its input, weight and bias to the compute dtype at use;
 the latent heads return f32. ``torch.autocast`` is not used: its cast
-points differ from flax's. Convs compute in NCHW but every flatten and
-reshape keeps the JAX package's NHWC element order.
+points differ from flax's. The conv pyramid keeps its activations NHWC
+(the JAX package's element order): ops/conv_epilogue.py ``conv_block``
+runs each conv on their channels-last NCHW view and, on the card, its
+bias, crop and GELU in the epilogue kernels.
 
 Under tensor parallelism (parallel/tp.py ``shard_params``) a layer whose
 weight holds one model rank's output slice computes that slice and
@@ -34,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from musicvae_tpu_torch.ops.conv1 import first_conv_s2
+from musicvae_tpu_torch.ops.conv_epilogue import conv_block
 from musicvae_tpu_torch.parallel.tp import (Layout, column_in, column_out,
                                             shard_of)
 
@@ -148,20 +151,19 @@ class ConvTrunk(nn.Module):
             h = x.to(dt)
             if h.shape[1] % pt:     # bar-adapting meters: silent steps
                 h = F.pad(h, (0, 0, 0, pt - h.shape[1] % pt))
-            h = space_to_depth(h, pt, pp).permute(0, 3, 1, 2)
+            h = space_to_depth(h, pt, pp)
         elif self.first_conv_kernel and tuple(x.shape[1:]) == (96, 128):
             c0 = convs.pop(0)
             w = c0.weight[:, 0].permute(1, 2, 0).contiguous()    # [3,3,C]
             h = first_conv_s2(x, w, c0.bias, gelu=True, out_dtype=dt)
-            h = column_out(h, -1, c0).permute(0, 3, 1, 2)  # NHWC → NCHW
+            h = column_out(h, -1, c0)
         else:
-            h = x.to(dt)[:, None]
-        for conv in convs:
-            h = _gelu(F.conv2d(column_in(h, conv), conv.weight.to(dt),
-                               conv.bias.to(dt), stride=conv.stride,
-                               padding=1))
-            h = column_out(h, 1, conv)
-        return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+            h = x.to(dt)[..., None]
+        for conv in convs:          # h: NHWC
+            h = column_out(conv_block(column_in(h, conv), conv.weight.to(dt),
+                                      conv.bias.to(dt), conv.stride,
+                                      conv.padding), -1, conv)
+        return h.reshape(h.shape[0], -1)
 
 
 class BarFeat(ConvTrunk):
@@ -226,25 +228,27 @@ class BarDecoderHead(nn.Module):
 
     def forward(self, v: torch.Tensor) -> torch.Tensor:
         h = _gelu(self.fc(v))
-        h = h.reshape(h.shape[0], self.t0, self.p0, -1).permute(0, 3, 1, 2)
-        h = _upsample(h, self.deconvs, self.compute_dtype, gelu_last=False)
-        # contiguous: the crop is a view when no cast copies it (f32)
-        return h[:, 0, :self.steps, :self.pitches].to(
-            self.logits_dtype).contiguous()
+        h = h.reshape(h.shape[0], self.t0, self.p0, -1)
+        # the last transposed conv: no GELU, its [T, P] crop of the
+        # ceil-padded grid as the logits
+        h = _upsample(h, self.deconvs, self.compute_dtype,
+                      last=((self.steps, self.pitches), False,
+                            self.logits_dtype))
+        return h[..., 0].contiguous()   # a view on the CPU
 
 
 def _upsample(h: torch.Tensor, deconvs, dt: torch.dtype,
-              gelu_last: bool) -> torch.Tensor:
-    """The stride-2 transposed convs of a decoder head, NCHW, each cropped
-    to twice its input, GELU after each but (unless ``gelu_last``) the
-    last."""
+              last=None) -> torch.Tensor:
+    """The stride-2 transposed convs of a decoder head on NHWC activations,
+    each cropped to twice its input with a GELU after it; ``last`` gives
+    the last one's (crop, gelu, out_dtype) instead."""
     for i, d in enumerate(deconvs):
-        t, p = h.shape[2], h.shape[3]
-        h = F.conv_transpose2d(column_in(h, d), d.weight.to(dt),
-                               d.bias.to(dt), stride=2)[:, :, :2 * t, :2 * p]
-        if gelu_last or i + 1 < len(deconvs):
-            h = _gelu(h)
-        h = column_out(h, 1, d)
+        t, p = h.shape[1], h.shape[2]
+        crop, gelu, out_dtype = ((2 * t, 2 * p), True, dt) \
+            if last is None or i + 1 < len(deconvs) else last
+        h = column_out(conv_block(column_in(h, d), d.weight.to(dt),
+                                  d.bias.to(dt), d.stride, d.padding, True,
+                                  crop, gelu, out_dtype), -1, d)
     return h
 
 
@@ -277,15 +281,15 @@ class PatchHead(nn.Module):
     def forward(self, v: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         h = _gelu(self.fc(v))
-        h = h.reshape(h.shape[0], self.t0, self.p0, -1).permute(0, 3, 1, 2)
-        h = _upsample(h, self.deconvs, dt, gelu_last=True)
-        h = F.conv2d(column_in(h, self.out), self.out.weight.to(dt),
-                     self.out.bias.to(dt), padding=1)
-        h = column_out(h, 1, self.out)
-        h = depth_to_space(h.permute(0, 2, 3, 1), *self.patch)
-        # contiguous: depth_to_space permutes, and the cast keeps strides
-        return h[:, :self.steps, :self.pitches].to(
-            self.logits_dtype).contiguous()
+        h = h.reshape(h.shape[0], self.t0, self.p0, -1)
+        h = _upsample(h, self.deconvs, dt)
+        h = conv_block(column_in(h, self.out), self.out.weight.to(dt),
+                       self.out.bias.to(dt), self.out.stride,
+                       self.out.padding, gelu=False,
+                       out_dtype=self.logits_dtype)
+        h = depth_to_space(column_out(h, -1, self.out), *self.patch)
+        # contiguous: depth_to_space permutes
+        return h[:, :self.steps, :self.pitches].contiguous()
 
 
 def per_slot(fn, slots: int, *xs: torch.Tensor) -> torch.Tensor:

@@ -45,7 +45,10 @@ KINDS = {torch.uint8: 0, torch.bfloat16: 1, torch.float32: 2}
 
 LAUNCHES = {"first_conv_s2": 0, "first_conv_s2_bwd": 0, "masked_bce_sum": 0,
             "masked_bce_sum_dual": 0, "masked_bce_bwd": 0, "kl_sum": 0,
-            "kl_bwd": 0}
+            "kl_bwd": 0, "conv_epilogue": 0, "conv_epilogue_bwd": 0}
+
+# partials of the BCE sum kernels (csrc/masked_bce.cu MAX_BLOCKS)
+WORKSPACE_PARTIALS = 1024
 
 _lock = threading.Lock()
 _lib = None
@@ -53,6 +56,7 @@ _lib = None
 # build and load (the ``kernels.build`` span, utils/trace.py)
 build_info: dict = {}
 _records: dict = {}     # stream under capture → its launch record
+_workspaces: dict = {}  # (device, stream) → (partials, ticket)
 
 
 def reset_launches() -> None:
@@ -164,15 +168,67 @@ def lib() -> ctypes.CDLL:
                                                   p]
             handle.mvk_kl_sum.argtypes = [p, p, i, p, ll, p]
             handle.mvk_kl_bwd.argtypes = [p, p, i, p, p, p, ll, p]
+            handle.mvk_conv_epilogue.argtypes = [p, i, p, p, i, i, i, i, i,
+                                                 i, i, i, i, p]
+            handle.mvk_conv_epilogue_bwd.argtypes = [p, i, p, i, p, p, p, p,
+                                                     p, i, i, i, i, i, i, i,
+                                                     i, p]
             for name in LAUNCHES:       # one C entry point per kernel
                 getattr(handle, "mvk_" + name).restype = i
             _lib = handle
         return _lib
 
 
+def workspace(dev: torch.device, stream: int):
+    """(partials [WORKSPACE_PARTIALS] f32, ticket [1] int32) of one device
+    and stream, made once: the ticket is zeroed here, and every launch
+    that takes it (the BCE sums, the conv epilogue's backward) leaves it 0,
+    so no call launches a memset. Launches on one stream run in order, so
+    they can share it. A graph captured on a stream (utils/graphs.py)
+    keeps that stream's workspace, which must exist before the capture
+    (the program's eager warm-up makes it): made during one, it would be
+    the graph's memory, zeroed only at a replay."""
+    key = (dev, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the kernels' workspace of a stream under "
+                               "capture must be made before the capture: "
+                               "run the program eagerly on that stream "
+                               "first")
+        ws = (torch.empty(WORKSPACE_PARTIALS, dtype=torch.float32,
+                          device=dev),
+              torch.zeros(1, dtype=torch.int32, device=dev))
+        _workspaces[key] = ws
+    return ws
+
+
+def ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """The ticket of ``workspace(dev, stream)``."""
+    return workspace(dev, stream)[1]
+
+
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_cpu(name: str, t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper takes its plain version), False
+    for a CUDA tensor (the kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
+
+
+def check_aligned(name: str, **tensors) -> None:
+    """Every tensor's data 16-byte aligned (the kernels move 16 bytes at a
+    time); raises otherwise."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
 def check(rc: int, name: str) -> None:

@@ -109,15 +109,8 @@ def _check(name: str, x, w, b) -> int:
     if w.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(f"{name}: w and b must be float32")
     _kernels.check_cuda_inputs(name, x.device, x=x, w=w, b=b)
-    _check_aligned(name, x=x)
+    _kernels.check_aligned(name, x=x)
     return c
-
-
-def _check_aligned(name: str, **tensors) -> None:
-    """The kernels load x and dy in 16-byte chunks."""
-    for arg, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
 def _forward(x, w, b, gelu: bool, out_dtype: torch.dtype) -> torch.Tensor:
@@ -152,7 +145,7 @@ def _backward(x, w, b, dy, gelu: bool):
         raise ValueError(f"{name}: dy must be [{m},{T_OUT},{P_OUT},{c}] in "
                          f"bf16 or f32, got {dy.dtype} {tuple(dy.shape)}")
     _kernels.check_cuda_inputs(name, x.device, dy=dy)
-    _check_aligned(name, dy=dy)
+    _kernels.check_aligned(name, dy=dy)
     if m == 0:
         return torch.zeros_like(w), torch.zeros_like(b)
     partials = torch.empty((10 * c, geometry(m, c).bwd_blocks),

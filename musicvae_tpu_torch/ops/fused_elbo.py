@@ -37,7 +37,7 @@ _THREADS = 256                # csrc/masked_bce.cu THREADS
 # SUM_MAX_BLOCKS.
 SUM_GROUP = 4
 SUM_CHUNK = _THREADS * SUM_GROUP
-SUM_MAX_BLOCKS = 1024                    # also the partials in a workspace
+SUM_MAX_BLOCKS = _kernels.WORKSPACE_PARTIALS   # the partials in a workspace
 
 
 class SumGeometry(NamedTuple):
@@ -54,41 +54,6 @@ def sum_geometry(n: int, p: int) -> SumGeometry:
     chunks = -(-n // SUM_CHUNK)
     return SumGeometry(chunks, max(1, min(chunks, SUM_MAX_BLOCKS)),
                        SUM_CHUNK % p == 0)
-
-
-_workspaces: dict = {}
-
-
-def _sum_workspace(dev: torch.device, stream: int):
-    """(partials [SUM_MAX_BLOCKS] f32, ticket [1] int32) for the sum kernels
-    on one device and stream, made once: the ticket is zeroed here, and
-    every launch leaves it 0, so no call launches a memset. Launches on one
-    stream run in order, so they can share it. A graph captured on a
-    stream (utils/graphs.py) keeps that stream's workspace, which must
-    exist before the capture (the program's eager warm-up makes it): made
-    during one, it would be the graph's memory, zeroed only at a replay."""
-    key = (dev, stream)
-    ws = _workspaces.get(key)
-    if ws is None:
-        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the BCE kernels' workspace of a stream "
-                               "under capture must be made before the "
-                               "capture: run the program eagerly on that "
-                               "stream first")
-        ws = (torch.empty(SUM_MAX_BLOCKS, dtype=torch.float32, device=dev),
-              torch.zeros(1, dtype=torch.int32, device=dev))
-        _workspaces[key] = ws
-    return ws
-
-
-def _on_cpu(name: str, t: torch.Tensor) -> bool:
-    """True for a CPU tensor (the plain version), False for a CUDA tensor
-    (the kernel); any other device raises."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return False
 
 
 def _check_bce(name: str, logits, x, mask) -> None:
@@ -113,13 +78,13 @@ def _check_bce(name: str, logits, x, mask) -> None:
 def _bce_sum(logits, x, mask, dual: bool):
     """(sum, tile or None). The kernels on a CUDA tensor."""
     name = "masked_bce_sum_dual" if dual else "masked_bce_sum"
-    if _on_cpu(name, logits):
+    if _kernels.on_cpu(name, logits):
         total = losses.masked_bce_sum(logits, x, mask)
         return total, (bce_grad_tile_plain(logits, x, mask) if dual else None)
     _check_bce(name, logits, x, mask)
     n, p = logits.numel(), logits.shape[-1]
     dev, stream = logits.device, _kernels.stream_of(logits)
-    partials, ticket = _sum_workspace(dev, stream)
+    partials, ticket = _kernels.workspace(dev, stream)
     out = torch.empty((), dtype=torch.float32, device=dev)
     args = (logits.data_ptr(), _kernels.KINDS[logits.dtype], x.data_ptr(),
             _kernels.KINDS[x.dtype], mask.data_ptr(), partials.data_ptr(),
@@ -150,7 +115,7 @@ def masked_bce_bwd_plain(logits, x, mask, g) -> torch.Tensor:
 
 def _bce_bwd(logits, x, mask, g):
     name = "masked_bce_bwd"
-    if _on_cpu(name, logits):
+    if _kernels.on_cpu(name, logits):
         return masked_bce_bwd_plain(logits, x, mask, g)
     _check_bce(name, logits, x, mask)
     g = g.to(torch.float32).contiguous()
@@ -255,7 +220,7 @@ def kl_bwd_plain(mu, logvar, g) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _kl_fwd(mu, logvar):
     name = "kl_sum"
-    if _on_cpu(name, mu):
+    if _kernels.on_cpu(name, mu):
         return losses.kl_diag_gaussian(mu.float(), logvar.float())
     _check_kl(name, mu, logvar)
     out = torch.empty((), dtype=torch.float32, device=mu.device)
@@ -270,7 +235,7 @@ def _kl_fwd(mu, logvar):
 
 def _kl_bwd(mu, logvar, g):
     name = "kl_bwd"
-    if _on_cpu(name, mu):
+    if _kernels.on_cpu(name, mu):
         return kl_bwd_plain(mu, logvar, g)
     _check_kl(name, mu, logvar)
     g = g.to(torch.float32).contiguous()

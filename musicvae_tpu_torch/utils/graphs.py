@@ -29,8 +29,9 @@ arguments in and the generator states in and out, and returns a copy of
 the outputs.
 
 Every program on a device is warmed up and captured on the one capture
-stream, so graphs that launch the BCE sum kernels (K2, K4) share that
-stream's workspace (ops/fused_elbo.py ``_sum_workspace``). Replays, and
+stream, so graphs that launch the BCE sum kernels (K2, K4) or the conv
+epilogue's backward share that stream's workspace (ops/_kernels.py
+``workspace``). Replays, and
 warm-ups, are ordered on the caller's current stream: the programs of one
 thread never run two at once, and a process runs its programs from one
 thread at a time (the train loop, serve's device lock or batcher).

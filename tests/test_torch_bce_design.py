@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from musicvae_tpu_torch.ops import fused_elbo, losses
+from musicvae_tpu_torch.ops import _kernels, fused_elbo, losses
 
 CU = Path(fused_elbo.__file__).resolve().parent.parent / "csrc" / "masked_bce.cu"
 
@@ -129,19 +129,21 @@ def test_general_mask_path_where_columns_move(p):
 
 
 def test_workspace_made_once_per_device_and_stream():
-    """The sum kernels' partials and ticket are made once for each (device,
-    stream) and handed out again after: no allocation and no memset a
-    call; the ticket starts at 0."""
+    """The sum kernels' partials and ticket (ops/_kernels.py ``workspace``,
+    whose ticket the conv epilogue's backward shares) are made once for
+    each (device, stream) and handed out again after: no allocation and no
+    memset a call; the ticket starts at 0."""
     dev = torch.device("cpu")
-    a = fused_elbo._sum_workspace(dev, 12345)
-    b = fused_elbo._sum_workspace(dev, 12345)
-    c = fused_elbo._sum_workspace(dev, 67890)
+    a = _kernels.workspace(dev, 12345)
+    b = _kernels.workspace(dev, 12345)
+    c = _kernels.workspace(dev, 67890)
     assert a[0] is b[0] and a[1] is b[1]
     assert c[0] is not a[0] and c[1] is not a[1]
+    assert _kernels.ticket(dev, 12345) is a[1]
     assert a[0].shape == (C["MAX_BLOCKS"],) and a[0].dtype == torch.float32
     assert a[1].shape == (1,) and int(a[1]) == 0
-    fused_elbo._workspaces.pop((dev, 12345))
-    fused_elbo._workspaces.pop((dev, 67890))
+    _kernels._workspaces.pop((dev, 12345))
+    _kernels._workspaces.pop((dev, 67890))
 
 
 @pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 12345 * 128,
