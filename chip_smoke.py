@@ -156,7 +156,10 @@ check does not hold:
    stream (streamed against resident steps/s: the train phase); (b) an
    NCCL group of
    world size 1 joined through the MVAE_* variables equals the run
-   without a group bit for bit; (c) two processes sharing the card over
+   without a group bit for bit, its resident dispatch captured once with
+   the all-reduce inside and equal to the same run eager bit for bit,
+   the tracer's all-reduce bytes 20 buckets of perfbench/yardstick_dp.py's
+   count in both; (c) two processes sharing the card over
    gloo (``--dp-worker``) run ``train`` through the CLI, resident,
    ``--host-sharded`` and ``--corpus-layout sharded``, 20 steps each in
    f32 and in bf16, and equal one process at the global batch (f32: loss
@@ -192,7 +195,12 @@ the card's name and power limit, the kernels JSON object, and
 printed. ``--only`` runs a subset of the phases for development, and
 ``--only profile`` a phase the full run leaves out: which parts of a train
 step the launch queue can hold, and torch.profiler's kernel table of one
-train dispatch.
+train dispatch. ``--only dp4`` (left out too; it needs four cards) runs
+full-width c4_cond on four processes, one a card, over NCCL: on every
+rank the captured dispatch, its all-reduce inside, against the eager one
+bit for bit, the replicas against rank 0, a steady dispatch's graph
+launches and NCCL kernels, the tracer's all-reduce bytes, steps/s graphed
+and eager.
 """
 
 from __future__ import annotations
@@ -4785,11 +4793,27 @@ def _stream_checks(seed: int, dev, ds, card: str) -> dict:
     return {"streamed_equals_single": same, "upload": up}
 
 
+def _spec_of(cfg) -> dict:
+    """The configuration groups of ``cfg`` as the benchmark's
+    configuration files hold them (perfbench/)."""
+    return {g: {k: list(v) if isinstance(v, tuple) else v
+                for k, v in dataclasses.asdict(getattr(cfg, g)).items()}
+            for g in ("midi", "model", "train")}
+
+
 def _nccl_world_one(seed: int, dev, ds) -> tuple:
     """(b) one NCCL process group of world size 1 joined through the
     MVAE_* variables: its run equals the run without a group, bit for
-    bit (the gradients then pass one all-reduce over NCCL)."""
+    bit, and so does the same run eager (``debug_mode``): the group's
+    resident dispatch is captured once, its all-reduce inside, and its
+    replays are the eager NCCL steps. The tracer's all-reduce bytes are
+    PAR_STEPS buckets of the benchmark's count (perfbench/yardstick_dp.py)
+    in both runs, and its ``dist.allreduce`` span is the graphed run's
+    eager first step alone; K4 is counted once a step, replays
+    included."""
     from musicvae_tpu_torch.parallel import distributed
+    from musicvae_tpu_torch.utils import debug_mode, trace
+    from perfbench import yardstick_dp
 
     cfg = _par_config(seed)
     base, m_base, _, _ = _timed_train(cfg, ds, dev)
@@ -4802,7 +4826,15 @@ def _nccl_world_one(seed: int, dev, ds) -> tuple:
         check(distributed.initialize_from_env(device=dev), "no group")
         backend = torch.distributed.get_backend()
         check(backend == "nccl", f"backend {backend}")
-        grp, m_grp, _, launches = _timed_train(cfg, ds, dev)
+        trace.reset()
+        grp, m_grp, rate, launches = _timed_train(cfg, ds, dev)
+        spans = {k: v[0] for k, v in trace.totals().items()}
+        graphed_bytes = trace.counters().get("dist.allreduce_bytes")
+        trace.reset()
+        with debug_mode(nans=False, disable_jit=True):
+            eager, m_eager, rate_e, launches_e = _timed_train(cfg, ds, dev)
+        eager_spans = {k: v[0] for k, v in trace.totals().items()}
+        eager_bytes = trace.counters().get("dist.allreduce_bytes")
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
@@ -4811,13 +4843,34 @@ def _nccl_world_one(seed: int, dev, ds) -> tuple:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    same = (all(torch.equal(x, y) for x, y in zip(_state_bits(base),
-                                                   _state_bits(grp)))
-            and all(torch.equal(m_base[k], m_grp[k]) for k in m_base))
-    out = {"backend": backend, "same_bits": same,
-           "loss": float(m_grp["loss"])}
-    log(f"parallel (b) NCCL world 1 vs no group: {out}")
-    check(same, "the NCCL world-1 run differs from the run without one")
+
+    def same(a, b, ma, mb):
+        return (all(torch.equal(x, y) for x, y in zip(_state_bits(a),
+                                                       _state_bits(b)))
+                and all(torch.equal(ma[k], mb[k]) for k in ma))
+
+    bucket = yardstick_dp.bucket_bytes(_spec_of(cfg))
+    out = {"backend": backend, "same_bits": same(base, grp, m_base, m_grp),
+           "graph_equals_eager": same(grp, eager, m_grp, m_eager),
+           "loss": float(m_grp["loss"]), "captures": spans.get(
+               "graph.capture", 0),
+           "allreduce_spans": [spans.get("dist.allreduce", 0),
+                               eager_spans.get("dist.allreduce", 0)],
+           "allreduce_bytes": [graphed_bytes, eager_bytes],
+           "bucket_bytes": bucket,
+           "k4": [launches["masked_bce_sum_dual"],
+                  launches_e["masked_bce_sum_dual"]],
+           "steps_per_s": [rate, rate_e]}
+    log(f"parallel (b) NCCL world 1: graphed vs no group, graphed vs "
+        f"eager: {out}")
+    check(out["same_bits"], "the NCCL world-1 run differs from the run "
+                            "without one")
+    check(out["graph_equals_eager"] and out["captures"] == 1,
+          f"the NCCL world-1 run's graph and its eager run: {out}")
+    check(out["allreduce_bytes"] == [PAR_STEPS * bucket] * 2
+          and out["allreduce_spans"] == [1, PAR_STEPS]
+          and out["k4"] == [PAR_STEPS] * 2,
+          f"the NCCL world-1 run's counts: {out}")
     return launches, out
 
 
@@ -4870,7 +4923,8 @@ def parallel_phase(seed: int, dev: torch.device, card: str):
     K streamed steps equal K single steps bit for bit, ``train --stream``
     through the CLI, and one K-stack's upload timed on its side stream;
     (b) an NCCL group
-    of world size 1 through the MVAE_* variables, bit-equal to no group;
+    of world size 1 through the MVAE_* variables, bit-equal to no group
+    and, captured with its all-reduce inside, to its own eager run;
     (c) two processes sharing the card over gloo run ``train`` through
     the CLI, resident, host-sharded and sharded-corpus, in f32 and bf16,
     each against one process at the global batch (``DP_RTOL``, which must
@@ -5025,6 +5079,200 @@ def parallel_phase(seed: int, dev: torch.device, card: str):
     log(f"parallel launches: {runs}")
     log(f"parallel phase: {out['seconds']:.1f} s")
     return runs, out
+
+
+DP4_WORLD = 4            # processes, one a card, over NCCL
+DP4_K = 10               # steps a dispatch
+DP4_TIMED = 5            # timed dispatches each way, after two
+DP4_WAIT_S = 600         # bound on the workers
+
+
+def _dp4_config(seed: int):
+    """The registered c4_cond (bf16, the first-conv kernels on) at its
+    deployment's 32 rows a process, a global batch of 32 a process."""
+    from musicvae_tpu_torch.config import get_config
+
+    base = get_config("c4_cond")
+    return base.replace(
+        model=dataclasses.replace(base.model, use_pallas_conv1=True),
+        train=dataclasses.replace(base.train, batch_size=32 * DP4_WORLD,
+                                  seed=seed))
+
+
+def dp4_worker(argv) -> int:
+    """One of the DP4_WORLD processes of the dp4 phase (run as
+    ``chip_smoke.py --dp4-worker RANK WORLD HOST:PORT SEED``), on card
+    RANK: joins NCCL through the MVAE_* variables and runs the resident
+    dispatch of full-width c4_cond at 32 rows, 2 + DP4_TIMED dispatches
+    of DP4_K steps graphed, then the same from the same state eager
+    (``debug_mode``): the second dispatch of each under torch.profiler
+    (graph launches, NCCL and K4 kernels), the tracer's all-reduce bytes
+    and spans over the first two, steps/s over the rest; the two runs'
+    bits (every tensor of the state and the generator's state) compared,
+    and each run's largest parameter gap to rank 0. One JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from musicvae_tpu_torch.parallel import distributed, make_mesh
+    from musicvae_tpu_torch.train import trainer
+    from musicvae_tpu_torch.utils import debug_mode, trace
+    from perfbench import yardstick_dp
+
+    rank, world, coord, seed = (int(argv[0]), int(argv[1]), argv[2],
+                                int(argv[3]))
+    os.environ.update(MVAE_COORDINATOR=coord, MVAE_NUM_PROCS=str(world),
+                      MVAE_PROC_ID=str(rank))
+    dev = torch.device("cuda", rank)
+    check(distributed.initialize_from_env(device=dev), "no group")
+    check(torch.distributed.get_backend() == "nccl",
+          f"backend {torch.distributed.get_backend()}")
+    init_s = trace.totals()["dist.init"][1]
+    cfg = _dp4_config(seed)
+    ds = make_bar_cache(seed, pieces=64, bars_per_piece=16)
+    rng = np.random.default_rng(seed + 1)
+    ds.chords = rng.integers(0, 24, len(ds)).astype(np.int32)
+    ds.keys = rng.integers(0, 24, len(ds)).astype(np.int32)
+    mesh = make_mesh(cfg.mesh, dev)
+    b = cfg.train.batch_size
+    rows = mesh.rows(b)
+    data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in (("bars", ds.bars), ("starts", ds.starts),
+                         ("chords", ds.chords), ("keys", ds.keys))}
+    ids = trainer.make_id_schedule(cfg.train.seed, len(ds), b)
+
+    def idxs(d):
+        return torch.from_numpy(np.stack(
+            [ids(d * DP4_K + j)[rows] for j in range(DP4_K)])).to(dev)
+
+    def replica_gap(state):
+        flat = torch.cat([p.detach().reshape(-1) for p in state.params])
+        first = flat.clone()
+        torch.distributed.broadcast(first, src=0)
+        gap = (flat - first).abs().max().reshape(1)
+        torch.distributed.all_reduce(gap, op=torch.distributed.ReduceOp.MAX)
+        return float(gap)
+
+    out, states = {"rank": rank, "init_s": init_s}, {}
+    for graph in (True, False):
+        model, state = trainer.create_state(cfg, device=dev, seed=seed)
+        multi = trainer.make_train_step_indexed_multi(cfg, model, mesh=mesh)
+        res = {}
+        with contextlib.ExitStack() as ctx:
+            ctx.enter_context(trainer.deterministic_algorithms())
+            if not graph:
+                ctx.enter_context(debug_mode(nans=False, disable_jit=True))
+            trace.reset()
+            multi(state, data, idxs(0))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                multi(state, data, idxs(1))
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            calls = {e.key: e.count for e in events
+                     if e.device_type == torch.autograd.DeviceType.CPU
+                     and e.key.startswith("cuda")}
+            device = {e.key: (e.count, e.device_time_total) for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.device_time_total > 0}
+            nccl = {k: v for k, v in device.items() if "nccl" in k.lower()}
+            res.update(
+                graph_launches=_runtime_calls(calls, "cudaGraphLaunch"),
+                nccl_kernels=sum(n for n, _ in nccl.values()),
+                nccl_ms_per_step=sum(t for _, t in nccl.values())
+                / 1e3 / DP4_K, nccl_names=sorted(nccl),
+                k4_kernels=sum(n for k, (n, _) in device.items()
+                               if "bce_sum<" in k),
+                kernel_ms_per_step=sum(t for _, t in device.values())
+                / 1e3 / DP4_K,
+                allreduce_bytes=trace.counters().get("dist.allreduce_bytes"),
+                allreduce_spans=trace.totals().get("dist.allreduce",
+                                                   [0])[0],
+                captures=trace.totals().get("graph.capture", [0])[0])
+            t0 = time.perf_counter()
+            for d in range(2, 2 + DP4_TIMED):
+                _, m = multi(state, data, idxs(d))
+            res["loss"] = float(m["loss"])
+            res["steps_per_s"] = DP4_TIMED * DP4_K / (time.perf_counter()
+                                                      - t0)
+        res["replica_gap"] = replica_gap(state)
+        res["graphed"] = all(p.program.graph is not None
+                             for p in multi.programs.values())
+        out["graph" if graph else "eager"] = res
+        states[graph] = state
+    a, e = states[True], states[False]
+    out["same_bits"] = (
+        all(torch.equal(x, y) for x, y in zip(_state_bits(a), _state_bits(e)))
+        and torch.equal(a.generator.get_state(), e.generator.get_state()))
+    out["bucket_bytes"] = yardstick_dp.bucket_bytes(_spec_of(cfg))
+    out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def dp4_phase(seed: int, card: str) -> dict:
+    """Data parallelism across four cards (not in the full run: it needs a
+    host of four): DP4_WORLD processes of ``dp4_worker``, one a card, over
+    NCCL; on every rank the graphed dispatch equals the eager one bit for
+    bit, the replicas equal rank 0 in both, a steady dispatch is DP4_K
+    ``cudaGraphLaunch`` (none eager) with the NCCL all-reduce kernel in
+    every step and K4 once a step, the all-reduce bytes are the
+    benchmark's bucket a step (one ``dist.allreduce`` span graphed, the
+    warm-up's; one a step eager). Each rank's output, NCCL's INFO lines
+    among it, goes to dp4_rank<r>.log beside ``--log-file``."""
+    check(torch.cuda.device_count() >= DP4_WORLD,
+          f"dp4 needs {DP4_WORLD} cards, {torch.cuda.device_count()} "
+          f"present")
+    t_phase = time.perf_counter()
+    where = os.path.dirname(os.path.abspath(LOG_FILE)) if LOG_FILE else "."
+    coord = f"127.0.0.1:{_free_port()}"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MVAE_")}
+    env.update(NCCL_DEBUG="INFO", NCCL_SOCKET_IFNAME="lo")
+    logs = [os.path.join(where, f"dp4_rank{r}.log") for r in range(DP4_WORLD)]
+    procs = []
+    try:
+        for r in range(DP4_WORLD):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--dp4-worker", str(r), str(DP4_WORLD), coord,
+                     str(seed)], stdout=f, stderr=subprocess.STDOUT,
+                    env=env))
+        for r, p in enumerate(procs):
+            p.wait(timeout=DP4_WAIT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    results = []
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            text = f.read()
+        check(p.returncode == 0, f"dp4 rank {r}: {text[-3000:]}")
+        results.append(json.loads([ln for ln in text.splitlines()
+                                   if ln.startswith('{"rank"')][-1]))
+    for res in results:
+        log(f"dp4 rank {res['rank']} ({card}): {res}")
+        g, e, bucket = res["graph"], res["eager"], res["bucket_bytes"]
+        check(res["same_bits"] and g["graphed"] and not e["graphed"],
+              f"rank {res['rank']}: graphed and eager differ")
+        check(g["replica_gap"] == 0.0 and e["replica_gap"] == 0.0,
+              f"rank {res['rank']}: replicas differ from rank 0")
+        check(g["graph_launches"] == DP4_K and e["graph_launches"] == 0
+              and g["nccl_kernels"] >= DP4_K and e["nccl_kernels"] >= DP4_K
+              and g["k4_kernels"] == e["k4_kernels"] == DP4_K,
+              f"rank {res['rank']}: a dispatch's launches")
+        check(g["allreduce_bytes"] == e["allreduce_bytes"]
+              == 2 * DP4_K * bucket and g["allreduce_spans"] == 1
+              and e["allreduce_spans"] == 2 * DP4_K and g["captures"] == 1,
+              f"rank {res['rank']}: the tracer's all-reduce counts")
+    out = {"ranks": results, "seconds": time.perf_counter() - t_phase}
+    log(f"dp4 phase: {out['seconds']:.1f} s; steps/s graphed "
+        f"{[r['graph']['steps_per_s'] for r in results]}, eager "
+        f"{[r['eager']['steps_per_s'] for r in results]}")
+    return out
 
 
 TP_K = 5                 # steps a dispatch, the first dispatch a warm-up
@@ -5762,11 +6010,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--tp-worker"]:
         _card_settings()
         return tp_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--dp4-worker"]:
+        _card_settings()
+        return dp4_worker(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help=f"comma-separated subset of {','.join(PHASES)} "
-                         "(and profile, which the full run leaves out) "
+                         "(and profile and dp4, which the full run leaves "
+                         "out) "
                          "for development: runs those phases and prints "
                          "their details, but no kernels line and no result "
                          "line (the full run is the check)")
@@ -5775,8 +6027,8 @@ def main() -> int:
                          "details line outgrows what a terminal keeps)")
     args = ap.parse_args()
     only = PHASES if args.only is None else tuple(args.only.split(","))
-    if set(only) - set(PHASES) - {"profile"}:
-        ap.error(f"--only takes {PHASES + ('profile',)}")
+    if set(only) - set(PHASES) - {"profile", "dp4"}:
+        ap.error(f"--only takes {PHASES + ('profile', 'dp4')}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
@@ -5873,6 +6125,9 @@ def main() -> int:
     if "profile" in only:
         mark("profile")
         details["profile"] = profile_phase(args.seed, dev)
+    if "dp4" in only:
+        mark("dp4")
+        details["dp4"] = dp4_phase(args.seed, card)
 
     starts["end"] = round(time.perf_counter() - t_run, 1)
     log(f"phases started at (s): {starts}")

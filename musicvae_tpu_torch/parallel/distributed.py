@@ -21,6 +21,11 @@ A launch names the group by one of, in this order:
    the first five; the sixth opts in, as in the JAX package).
 
 Nothing configured means one process and no group.
+
+Joining is traced (utils/trace.py) as the span ``dist.init``: the
+group's rendezvous, in which gloo connects its processes, and under
+NCCL a first collective, which makes the communicator on this process's
+card (``cuda:LOCAL_RANK`` unless the caller names the device's index).
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from musicvae_tpu_torch.utils import trace
 
 _MVAE_VARS = ("MVAE_COORDINATOR", "MVAE_NUM_PROCS", "MVAE_PROC_ID")
 
@@ -107,10 +114,27 @@ def initialize_from_env(coordinator: Optional[str] = None,
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process id {process_id} not in "
                          f"[0, {num_processes})")
-    dist.init_process_group(backend=backend or _backend(device),
-                            init_method=init, world_size=num_processes,
-                            rank=process_id)
+    backend = backend or _backend(device)
+    with trace.span("dist.init", backend=backend, world=num_processes):
+        dist.init_process_group(backend=backend, init_method=init,
+                                world_size=num_processes, rank=process_id)
+        if backend == "nccl":
+            # gloo connects its processes in the rendezvous; NCCL makes
+            # its communicator at the first collective: here, on this
+            # process's card
+            dev = None if device is None else torch.device(device)
+            torch.cuda.set_device(dev if dev is not None and dev.index
+                                  is not None else local_rank())
+            barrier()
     return True
+
+
+def barrier() -> None:
+    """Wait, on the host, until every process of the group has come here:
+    one all-reduce of one element on ``collective_device``."""
+    t = torch.zeros(1, device=collective_device())
+    dist.all_reduce(t)
+    t.item()
 
 
 def collective_device() -> torch.device:

@@ -32,18 +32,25 @@ What differs from the JAX package, and why:
   them, the optimizer moments, the step counter and the generator in place
   and returns the same ``TrainState``.
 - The counterpart of jit over ``lax.scan`` is a captured CUDA graph
-  (utils/graphs.py): on a CUDA device with no process group and outside
-  ``utils/debug.py`` ``debug_mode``, the resident K-step dispatch
+  (utils/graphs.py): on a CUDA device outside ``utils/debug.py``
+  ``debug_mode``, the resident K-step dispatch
   (``make_train_step_indexed_multi``) captures one step and replays it
   once a row of window ids, which an enqueued device copy puts in the
-  step's static input, and the streamed dispatch
-  (``make_train_step_multi``) likewise a row of the uploaded stack; the
-  first step runs eagerly (the warm-up). The evals are graphs too
-  (utils/metrics.py ``make_eval_fn``). Runs with a process group
-  (collectives) and ``debug_mode`` run the same step eagerly, a Python
-  loop with no host synchronisation inside (no ``.item()``, no
-  host-made tensors). Metrics come back as device tensors and are read
-  at log boundaries only.
+  step's static input, with no process group or under an NCCL group
+  (data parallelism: the flat all-reduce, and free bits' group mean,
+  are NCCL kernels inside the graph); the streamed dispatch
+  (``make_train_step_multi``) likewise a row of the uploaded stack,
+  with no process group. The first step runs eagerly (the warm-up,
+  which also makes the NCCL communicator if no collective has yet). The
+  evals are graphs too (utils/metrics.py ``make_eval_fn``). Eager, the
+  same step as a Python loop with no host synchronisation inside (no
+  ``.item()``, no host-made tensors): ``debug_mode``; a gloo group,
+  whose collectives run on the host and cannot be captured; tensor
+  parallelism (a model axis), whose gathers and dx all-reduces sit in
+  autograd's backward, never captured here; and the streamed dispatch
+  under any group. Metrics come back as device tensors and are read at
+  log boundaries only; the collective stop and the start-up checks run
+  between dispatches, outside any graph.
 - Noise comes from the state's ``torch.Generator`` on the device, in a
   fixed order each step: the transpose shifts, then each latent level's
   normals (``vae.draw_eps``: the phrase level, then the bar level, for
@@ -439,7 +446,16 @@ def _average_over_group(grads: List[torch.Tensor],
     flat = torch.cat([g.reshape(-1) for g in grads]
                      + [metrics[k].reshape(1).to(grads[0].dtype)
                         for k in _AVERAGED])
-    dist.all_reduce(flat, group=mesh.data_group)
+    # the bucket's bytes a step, counted at each replay of a captured
+    # step too; an eager step's all-reduce is also a span (inside a graph
+    # the trace's NCCL kernel stands for it)
+    nbytes = flat.numel() * flat.element_size()
+    trace.count("dist.allreduce_bytes", nbytes)
+    if trace.capturing():
+        dist.all_reduce(flat, group=mesh.data_group)
+    else:
+        with trace.span("dist.allreduce", bytes=nbytes):
+            dist.all_reduce(flat, group=mesh.data_group)
     flat /= mesh.data
     out, i = [], 0
     for g in grads:
@@ -675,19 +691,21 @@ def make_train_step_indexed_multi(cfg: Config, model: PianoRollVAE,
     no host synchronisation in between, so the host enqueues ahead of the
     card.
 
-    On a CUDA device, with no process group (``mesh`` None or without
-    one) and outside ``utils/debug.py`` ``debug_mode``, the step runs as
-    one captured CUDA graph (utils/graphs.py ``Program``): the first step
-    eagerly, the second captured, and each step after as a replay, the
-    counterpart of the JAX package's jit over ``lax.scan``; a graph's
-    step, transpose shifts and normals (from ``state.generator``) are an
-    eager step's, bit for bit. The graph is kept with this function for
-    the state, the resident ``data`` tensors and the argument shapes it
-    was captured for, as jit keeps a program a signature; other ones
-    capture anew. Under a process group (the step's collectives) and in
-    ``debug_mode`` every step is eager. Not for two threads at once."""
+    On a CUDA device, outside ``utils/debug.py`` ``debug_mode``, with no
+    process group or under an NCCL group without a model axis
+    (``_graphable``), the step runs as one captured CUDA graph
+    (utils/graphs.py ``Program``): the first step eagerly, the second
+    captured, and each step after as a replay, the counterpart of the
+    JAX package's jit over ``lax.scan``; a graph's step, transpose shifts
+    and normals (from ``state.generator``) are an eager step's, bit for
+    bit, and under NCCL the graph holds the step's all-reduce, so every
+    process of the group replays its graph once a step. The graph is
+    kept with this function for the state, the resident ``data`` tensors
+    and the argument shapes it was captured for, as jit keeps a program
+    a signature; other ones capture anew. Under a gloo group, tensor
+    parallelism and in ``debug_mode`` every step is eager. Not for two
+    threads at once."""
     single = make_train_step_indexed(cfg, model, use_pallas, mesh)
-    graphable = not (mesh is not None and mesh.group)
     programs: Dict[tuple, _RowStep] = {}
 
     def multi(state, data, idxs, eps=None, shifts=None):
@@ -697,10 +715,24 @@ def make_train_step_indexed_multi(cfg: Config, model: PianoRollVAE,
         key = _dispatch_key(state, data, rows, eps, shifts)
         return state, _dispatch(programs, key, lambda: _RowStep(
             lambda r, e, s: single(state, data, r["idx"], e, s)[1],
-            state, rows, eps, shifts, graphable), rows, eps, shifts)
+            state, rows, eps, shifts, _graphable(mesh, state)), rows, eps,
+            shifts)
 
     multi.programs = programs
     return multi
+
+
+def _graphable(mesh: Optional[DataMesh], state: TrainState) -> bool:
+    """Whether a resident dispatch under ``mesh`` may run as a captured
+    graph: with no process group, or under an NCCL group with no model
+    axis and an unsharded state, whose collectives (the flat all-reduce,
+    free bits' group mean) are NCCL kernels a graph holds. gloo's run on
+    the host, and tensor parallelism's sit in autograd's backward: those
+    steps stay eager."""
+    if mesh is None or not mesh.group:
+        return True
+    return (mesh.model == 1 and state.tp is None
+            and dist.get_backend() == "nccl")
 
 
 def _dispatch_key(state: TrainState, data: dict, rows: dict, eps,
@@ -746,7 +778,8 @@ class _RowStep:
     the step that reads them, a ``graphs.Program``: a call copies row j
     of each into its buffer (enqueued device copies) and runs
     ``body(row buffers, noise buffers, shifts buffer)``. It keeps the
-    state."""
+    state. Nothing it holds refers back to it, so its graph goes as soon
+    as its dispatch function lets it go (``train()`` does on return)."""
 
     def __init__(self, body: Callable, state: TrainState, rows: dict, eps,
                  shifts, graphable: bool):
@@ -756,12 +789,11 @@ class _RowStep:
         def buffer(t):
             return torch.empty(t.shape[1:], dtype=t.dtype, device=dev)
 
-        self.rows = {k: buffer(v) for k, v in rows.items()}
-        self.eps = None if eps is None else tuple(map(buffer, eps))
-        self.shifts = None if shifts is None else buffer(shifts)
-        self.program = graphs.Program(
-            lambda: body(self.rows, self.eps, self.shifts), dev,
-            (state.generator,), graphable)
+        rows_b = self.rows = {k: buffer(v) for k, v in rows.items()}
+        eps_b = self.eps = None if eps is None else tuple(map(buffer, eps))
+        shifts_b = self.shifts = None if shifts is None else buffer(shifts)
+        self.program = graphs.Program(lambda: body(rows_b, eps_b, shifts_b),
+                                      dev, (state.generator,), graphable)
 
     def __call__(self, j: int, rows: dict, eps,
                  shifts) -> Dict[str, torch.Tensor]:
@@ -1114,7 +1146,9 @@ def train(cfg: Config,
     (its inputs) and ``train.enqueue`` (its K steps), each with ``steps``,
     and a log's read of the metrics, which waits for the card, as
     ``train.read``; the streaming producer's as ``stream.stack`` and
-    ``stream.upload``.
+    ``stream.upload``; under a process group each step's all-reduce adds
+    its bytes to the counter ``dist.allreduce_bytes`` (a replay too) and,
+    eager, is the span ``dist.allreduce``.
 
     Returns (model, final_state, last_metrics); the metrics are device
     tensors."""
@@ -1233,7 +1267,12 @@ def train(cfg: Config,
     if dev.type == "cuda":
         # the step's kernels are built (unless cached) and loaded here, in
         # their own span ``kernels.build``, not inside the first step's
-        # warm-up (``graph.warmup``)
+        # warm-up (``graph.warmup``); under a group process 0 builds them
+        # while the others wait, then they load what it built
+        if mesh.processes > 1:
+            if mesh.rank == 0:
+                _kernels.lib()
+            distributed.barrier()
         _kernels.lib()
     metrics: Dict[str, torch.Tensor] = {}
     step = start_step
@@ -1291,4 +1330,8 @@ def train(cfg: Config,
         if not resident:
             # a producer blocked on a full queue sees this within 0.2 s
             producer_quit.set()
+        # the dispatch's graphs go with this call, not with a later
+        # collection of cycles: an NCCL communicator cannot be destroyed
+        # while a graph holding its kernels lives
+        multi_fn.programs.clear()
     return model, state, metrics

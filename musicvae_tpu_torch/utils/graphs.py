@@ -17,7 +17,12 @@ Capture runs nothing; the function's writes happen at each replay, on the
 caller's current stream. The generators the function draws from are
 registered with the graph, so each replay draws the numbers an eager run
 draws and advances the generators as far. The kernel launches a capture
-records (ops/_kernels.py ``LAUNCHES``) are counted at every replay. The
+records (ops/_kernels.py ``LAUNCHES``), and the tracer's counters it is
+given (utils/trace.py ``capture_counts``), are counted at every replay.
+A function may hold NCCL collectives (the data-parallel train step's
+all-reduce): their communicator exists before the capture, made by an
+earlier collective or by the eager first run, and every process of the
+group captures and replays the same sequence of them. The
 outputs of a replay are the graph's own tensors, which the next replay
 overwrites: a caller that keeps them copies them. A failure to capture or
 to replay raises; nothing falls back to the eager run.
@@ -82,7 +87,8 @@ def _tensors(out) -> list:
 class Program:
     """``fn`` run as one captured CUDA graph (see the module docstring).
     ``generators``: every generator ``fn`` draws from; ``graphable``
-    False runs it eagerly always (a body with collectives).
+    False runs it eagerly always (a body with collectives a graph cannot
+    hold: gloo's, tensor parallelism's).
     ``info`` after the capture: ``capture_ms`` and ``instantiate_ms``
     (host clock: the lengths of the ``graph.capture`` and
     ``graph.instantiate`` spans, utils/trace.py) and ``pool_bytes``, the
@@ -99,6 +105,7 @@ class Program:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
         self.launches: Dict[str, int] = {}
+        self.counted: Dict[str, float] = {}
         self.info: Dict[str, float] = {}
         self.replays = 0
         self._warm = False
@@ -114,6 +121,7 @@ class Program:
         self.graph.replay()
         self.replays += 1
         _kernels.count_replay(self.launches)
+        trace.add_counts(self.counted)
         return self.outputs
 
     def _warm_up(self):
@@ -135,7 +143,8 @@ class Program:
         stream = capture_stream(self.device)
         with trace.span("graph.capture") as capture, \
                 torch.cuda.stream(stream), \
-                _kernels.capture_launches(stream.cuda_stream) as launches:
+                _kernels.capture_launches(stream.cuda_stream) as launches, \
+                trace.capture_counts() as counted:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 outputs = self.fn()
@@ -148,7 +157,8 @@ class Program:
         self.info = {"capture_ms": capture.seconds * 1e3,
                      "instantiate_ms": inst.seconds * 1e3,
                      "pool_bytes": pool}
-        self.graph, self.outputs, self.launches = graph, outputs, launches
+        self.graph, self.outputs = graph, outputs
+        self.launches, self.counted = launches, counted
 
 
 def signature(given: Dict[Any, torch.Tensor]) -> tuple:

@@ -24,6 +24,11 @@ Nothing else turns events on: no flag, no environment variable. The
 newest ``EVENTS_KEPT`` events are kept, so a long run under the profiler
 holds a bounded number.
 
+While a graph is captured on a thread (``capture_counts``), ``count``
+on that thread adds to the capture's record instead: capture runs
+nothing, and the capturing program adds the record at each replay
+(``add_counts``), so a counter counts what the card is given to do.
+
 Spans nest per thread: a span's ``parent`` is the ``id`` of the span open
 around it on the same thread. A span without a ``rid`` takes its parent's,
 so the stages of one request carry its id; ``tag`` gives the request's id
@@ -37,11 +42,12 @@ thread.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import operator
 import threading
 import time
-from typing import Any, Deque, Dict, List
+from typing import Any, Deque, Dict, Iterator, List
 
 import torch.autograd.profiler as _profiler
 from torch._C._profiler import _RecordFunctionFast as _Range
@@ -166,9 +172,37 @@ def tag(rid: Any) -> None:
 
 
 def count(name: str, n: float = 1) -> None:
-    """Add ``n`` to counter ``name``."""
+    """Add ``n`` to counter ``name`` (to the capture's record while this
+    thread captures a graph, ``capture_counts``)."""
+    record = getattr(_local, "capture", None)
+    if record is not None:
+        record[name] = record.get(name, 0) + n
+        return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+def capturing() -> bool:
+    """Whether this thread is capturing a graph (``capture_counts``)."""
+    return getattr(_local, "capture", None) is not None
+
+
+@contextlib.contextmanager
+def capture_counts() -> Iterator[Dict[str, float]]:
+    """While this thread captures a graph: the counts ``count`` is given on
+    it, into the dict this yields, which is what one replay counts."""
+    record: Dict[str, float] = {}
+    _local.capture = record
+    try:
+        yield record
+    finally:
+        _local.capture = None
+
+
+def add_counts(record: Dict[str, float]) -> None:
+    """Count one replay of a graph whose capture recorded ``record``."""
+    for name, n in record.items():
+        count(name, n)
 
 
 def peak(name: str, value: float) -> None:

@@ -109,6 +109,14 @@ def state_tensors(state) -> list:
             + [t for k in ("mu", "nu") for t in sd["opt"][k].values()])
 
 
+def bench_spec(cfg) -> dict:
+    """The configuration groups of a port config as the benchmark's
+    configuration files hold them (perfbench/configs/*.json)."""
+    return {g: {k: list(v) if isinstance(v, tuple) else v
+                for k, v in dataclasses.asdict(getattr(cfg, g)).items()}
+            for g in ("midi", "model", "train")}
+
+
 def same_state(a, b) -> bool:
     ta, tb = state_tensors(a), state_tensors(b)
     return len(ta) == len(tb) and all(torch.equal(x, y)
