@@ -17,13 +17,25 @@ check does not hold:
 2b. epilogue: the conv epilogue (ops/conv_epilogue.py): one eager train
    step of c2_gru_4bar and c3_hier_16bar (first-conv kernels on) and of
    c2_mxu at registered width launches its forward and backward kernels
-   once for every conv and transposed conv of the pyramid (13 + 13; 9 + 9
-   for c2_mxu) and never the plain versions; each of those layers'
+   once for every conv and transposed conv of the pyramid but the head's
+   last layer (12 + 12, and that layer's 1 + 1; 9 + 9 for c2_mxu, whose
+   patch head has none) and never the plain versions; each of those layers'
    shapes on seeded inputs against the plain versions (forward and dc
    within 1 bf16 ulp, the share not bit-equal printed, dc zero on the
    cropped edge, db within 1 ulp and 1e-5 of the channel's absolute sum),
    then timed from a cold L2 beside the plain versions and the byte
    bound, summed over a step;
+2c. head_out: the decoder head's last layer (ops/head_out.py): the ptxas
+   report of its kernels; one eager train step of c2_gru_4bar and
+   c3_hier_16bar launches them 1 + 1 and the epilogue 12 + 12; at their
+   shapes (256 and 2,048 bars) and at ragged ones the kernels against the
+   plain versions (forward and dx within 1 ulp of x's dtype at the conv
+   sum's size plus the f32 sum's reordering, dW and db within 2^-7
+   relative and 1e-5 of their absolute sums), two runs bit-equal, a
+   captured graph's replay equal to the eager calls bit for bit; each
+   timed from a cold L2 beside its byte bound, the plain versions and the
+   path it replaces (cuDNN's transposed conv and its gradients with the
+   epilogue's two launches);
 3. reference: the model in f32 on the card against the same weights on
    the CPU (the path the CPU tests hold against the JAX package);
 4. serve: full-width c2_gru_4bar (bf16, first-conv kernel on, seeded
@@ -66,8 +78,9 @@ check does not hold:
    times and the graph's pool; a steady graph dispatch is K graph
    launches and no kernel launched from the step body, and its kernels
    by name (torch.profiler) are the launches the wrappers counted, the
-   conv epilogue's 13 + 13 a step with the first-conv kernels (15 + 15
-   without) among them, graph and eager. Then
+   conv epilogue's 12 + 12 a step with the first-conv kernels (14 + 14
+   without) and the head's last layer's 1 + 1 among them, graph and
+   eager. Then
    the streamed dispatch (``train --stream``'s) as a captured graph:
    ``train()`` on an iterator (20 steps in dispatches of 5 behind the
    producer thread) and 20 one-step streamed dispatches equal 20 eager
@@ -1519,8 +1532,10 @@ def _coalesced_graph_checks(cfg, model, service, seeds, dev, card: str):
     check(out["programs"][str(COALESCE_W)]["replays"] == 1 + COALESCE_ROUNDS
           and out["programs"][str(COALESCE_W)]["launches_per_replay"]
           == {"first_conv_s2": cfg.gen.num_bars,
-              # a bar: the previous bar's trunk (4 convs) and the head (5)
-              "conv_epilogue": 9 * cfg.gen.num_bars},
+              # a bar: the previous bar's trunk (4 convs) and the head (4
+              # and its last layer)
+              "conv_epilogue": 8 * cfg.gen.num_bars,
+              "head_out_fwd": cfg.gen.num_bars},
           f"coalesced: {out['programs']}")
     check(launches["first_conv_s2"] == cfg.gen.num_bars * (4 + len(rounds)),
           f"coalesced: K1 launched {launches['first_conv_s2']} times in "
@@ -1727,7 +1742,7 @@ def _eval_graph_checks(cfg, seed: int, dev, card: str):
               and out[name]["replays"] == EVAL_BATCHES - 1
               and out[name]["launches_per_replay"]
               == {"first_conv_s2": 2, "masked_bce_sum": 1,
-                  "conv_epilogue": 13},
+                  "conv_epilogue": 12, "head_out_fwd": 1},
               f"eval {name}: {out[name]}")
     check(launches["masked_bce_sum"] == 2 * EVAL_BATCHES
           and launches["first_conv_s2"] == 4 * EVAL_BATCHES,
@@ -1796,7 +1811,8 @@ def _reconstruct_graph_checks(cfg, model, seed: int, dev, card: str):
           "reconstruct: the graph's windows differ from eager ones")
     check(out["graphed"] and out["replays"] == RECON_WINDOWS - 1
           and out["launches_per_replay"] == {"first_conv_s2": 2,
-                                             "conv_epilogue": 13},
+                                             "conv_epilogue": 12,
+                                             "head_out_fwd": 1},
           f"reconstruct: {out}")
     check(0.0 < out["density"] < 1.0, f"reconstruct: density "
                                       f"{out['density']}")
@@ -2069,8 +2085,9 @@ def _dispatch_trace(fn, attempts: int = 3):
 
 
 def _traced_kernels_agree(names: dict, counted: dict) -> bool:
-    """Whether a trace holds as many K4, K1, K1b and conv epilogue kernels
-    by name as their wrappers counted launches for the traced call."""
+    """Whether a trace holds as many K4, K1, K1b, conv epilogue and head
+    kernels by name as their wrappers counted launches for the traced
+    call."""
     return (_kernel_calls(names, "bce_sum<")
             >= counted["masked_bce_sum_dual"]
             and _kernel_calls(names, "conv1_kernel")
@@ -2080,7 +2097,11 @@ def _traced_kernels_agree(names: dict, counted: dict) -> bool:
             and _kernel_calls(names, "conv_epilogue_fwd")
             == counted["conv_epilogue"]
             and _kernel_calls(names, "conv_epilogue_bwd")
-            == counted["conv_epilogue_bwd"])
+            == counted["conv_epilogue_bwd"]
+            and _kernel_calls(names, "head_out_fwd")
+            == counted["head_out_fwd"]
+            and _kernel_calls(names, "head_out_bwd")
+            == counted["head_out_bwd"])
 
 
 def _runtime_calls(calls: dict, prefix: str) -> int:
@@ -2229,11 +2250,13 @@ def _stream_graph_checks(cfg, ds, dev, seed: int, card: str):
               "replays", "launches_per_replay")),
           f"streamed graph and eager training differ: {out}")
     check(out["replays"] == TRAIN_STEPS - 1
-          # the first conv through cuDNN too: 5 convs a trunk and 5
-          # transposed convs, each way
+          # the first conv through cuDNN too: 5 convs a trunk and 4
+          # transposed convs, each way, and the head's last layer
           and out["launches_per_replay"] == {"masked_bce_sum_dual": 1,
-                                             "conv_epilogue": 15,
-                                             "conv_epilogue_bwd": 15},
+                                             "conv_epilogue": 14,
+                                             "conv_epilogue_bwd": 14,
+                                             "head_out_fwd": 1,
+                                             "head_out_bwd": 1},
           f"streamed dispatch: {out['replays']} replays, "
           f"{out['launches_per_replay']} a replay")
     del model_e, state_e, model_g, state_g, multi_1, state_t
@@ -2543,6 +2566,8 @@ def train_phase(seed: int, dev: torch.device, card: str):
                                                      "conv_epilogue_fwd"),
                    "epilogue_bwd_kernels": _kernel_calls(
                        names, "conv_epilogue_bwd"),
+                   "head_kernels": _kernel_calls(names, "head_out_fwd"),
+                   "head_bwd_kernels": _kernel_calls(names, "head_out_bwd"),
                    "counted": {k: v for k, v in counted.items() if v}}}
         check(out["graphed"] == graph, f"graphed {out['graphed']}, asked "
                                        f"{graph}")
@@ -2603,17 +2628,23 @@ def train_phase(seed: int, dev: torch.device, card: str):
                                             f"launched a graph")
         conv1 = name.startswith("conv1")
         # every conv and transposed conv of the stem and head once a step
-        # each way: 13 with the first-conv kernel (the benchmark's c2
-        # cell), 15 where the first conv of each trunk takes cuDNN too
+        # each way: 12 with the first-conv kernel (the benchmark's c2
+        # cell), 14 where the first conv of each trunk takes cuDNN too;
+        # the head's last layer its own kernels
         epilogue = TRAIN_K * (EPI_LAUNCHES["c2_gru_4bar"]
                               + (0 if conv1 else 2))
         check(d["counted"].get("conv_epilogue") == epilogue
               and d["counted"].get("conv_epilogue_bwd") == epilogue
               and d["epilogue_kernels"] == epilogue
-              and d["epilogue_bwd_kernels"] == epilogue,
-              f"{name}: {epilogue} conv epilogue launches each way expected "
-              f"in a dispatch of {TRAIN_K} steps, the profiler's kernels "
-              f"and the counts: {d}")
+              and d["epilogue_bwd_kernels"] == epilogue
+              and d["counted"].get("head_out_fwd") == TRAIN_K
+              and d["counted"].get("head_out_bwd") == TRAIN_K
+              and d["head_kernels"] == TRAIN_K
+              and d["head_bwd_kernels"] == TRAIN_K,
+              f"{name}: {epilogue} conv epilogue launches and {TRAIN_K} of "
+              f"the head's last layer each way expected in a dispatch of "
+              f"{TRAIN_K} steps, the profiler's kernels and the counts: "
+              f"{d}")
         check(d["k4_kernels"] == TRAIN_K
               and d["k1_kernels"] == (2 * TRAIN_K if conv1 else 0)
               and d["k1b_kernels"] == (2 * TRAIN_K if conv1 else 0)
@@ -5801,7 +5832,20 @@ def profile_phase(seed: int, dev: torch.device):
 # -- the conv epilogue -----------------------------------------------------------
 
 EPI_CONFIGS = ("c2_gru_4bar", "c3_hier_16bar", "c2_mxu")
-EPI_LAUNCHES = {"c2_gru_4bar": 13, "c3_hier_16bar": 13, "c2_mxu": 9}
+EPI_LAUNCHES = {"c2_gru_4bar": 12, "c3_hier_16bar": 12, "c2_mxu": 9}
+# the head's last layer (ops/head_out.py), once a step each way; the patch
+# head has none
+HEAD_OUT_LAUNCHES = {"c2_gru_4bar": 1, "c3_hier_16bar": 1, "c2_mxu": 0}
+_STEP_KERNELS = ("conv_epilogue", "conv_epilogue_bwd", "head_out_fwd",
+                 "head_out_bwd")
+
+
+def _step_launches(name: str) -> dict:
+    """The epilogue's and the head's last layer's launches in one train
+    step of config ``name`` (first-conv kernels on)."""
+    epi, head = EPI_LAUNCHES[name], HEAD_OUT_LAUNCHES[name]
+    return {"conv_epilogue": epi, "conv_epilogue_bwd": epi,
+            "head_out_fwd": head, "head_out_bwd": head}
 
 
 def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -5815,9 +5859,9 @@ def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _epilogue_layers(cfg, dev, seed: int):
     """One eager train step of ``cfg`` at its registered width on the card:
-    the launches of the epilogue kernels a step, the plain versions'
-    calls, and each ``conv_epilogue`` call's (c shape, crop, gelu,
-    out_dtype) with its count."""
+    the launches of the epilogue's and the head's last layer's kernels a
+    step, the epilogue's plain versions' calls, and each ``conv_epilogue``
+    call's (c shape, crop, gelu, out_dtype) with its count."""
     from musicvae_tpu_torch.models import layers
     from musicvae_tpu_torch.ops import _kernels, conv_epilogue as ce
     from musicvae_tpu_torch.train import trainer
@@ -5854,8 +5898,7 @@ def _epilogue_layers(cfg, dev, seed: int):
     finally:
         ce.conv_epilogue = fn
         ce.conv_epilogue_ref, ce.conv_epilogue_bwd_ref = ref, bwd_ref
-    launches = {k: _kernels.LAUNCHES[k] - before[k]
-                for k in ("conv_epilogue", "conv_epilogue_bwd")}
+    launches = {k: _kernels.LAUNCHES[k] - before[k] for k in _STEP_KERNELS}
     check(bool(torch.isfinite(metrics["loss"])), f"{cfg.name}: loss not "
                                                  f"finite")
     del model, state, step, x
@@ -5921,8 +5964,9 @@ def epilogue_phase(seed: int, dev: torch.device, card: str):
     """The conv epilogue (ops/conv_epilogue.py, csrc/conv_epilogue.cu): one
     eager train step of c2_gru_4bar, c3_hier_16bar (first-conv kernels
     on) and c2_mxu at registered width launches the forward and backward
-    kernels once for every conv and transposed conv of the pyramid (13 +
-    13 for c2 and c3, 9 + 9 for c2_mxu) and never the plain versions;
+    kernels once for every conv and transposed conv of the pyramid but the
+    head's last layer (12 + 12 for c2 and c3, and that layer's kernels 1 +
+    1; 9 + 9 for c2_mxu) and never the plain versions;
     then each of those layers' shapes, on seeded inputs, against the plain
     versions (``_epilogue_case``), and timed from a cold L2 with their
     plain versions (ATen's chain itself) beside their byte bound, summed
@@ -5939,12 +5983,11 @@ def epilogue_phase(seed: int, dev: torch.device, card: str):
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     use_pallas_conv1=True))
         launches, plain, calls = _epilogue_layers(cfg, dev, seed)
-        want = EPI_LAUNCHES[name]
+        want = _step_launches(name)
         log(f"epilogue {name}: launches a train step {launches}, plain "
             f"calls {plain}, layers {len(calls)}")
-        check(launches == {"conv_epilogue": want, "conv_epilogue_bwd": want},
-              f"{name}: epilogue launches {launches} a step, expected "
-              f"{want} each way")
+        check(launches == want, f"{name}: launches {launches} a step, "
+                                f"expected {want}")
         check(plain == {"fwd": 0, "bwd": 0}, f"{name}: the plain epilogue "
                                              f"ran on the card: {plain}")
         g = torch.Generator(dev).manual_seed(seed + 13)
@@ -5988,9 +6031,260 @@ def epilogue_phase(seed: int, dev: torch.device, card: str):
     return out
 
 
-PHASES = ("kernels", "epilogue", "reference", "serve", "eval", "fused_elbo",
-          "train", "ckpt", "corpus", "serve_stack", "kinds", "patch_attn",
-          "parallel", "tp")
+# -- the head's last layer -------------------------------------------------------
+
+HEAD_OUT_CONFIGS = ("c2_gru_4bar", "c3_hier_16bar")
+# (bars, h, w, Cin, crop, x dtype, out dtype) beside the configs' own: the
+# whole grid, an odd crop, f32, and the other channel counts the kernels
+# take (8-byte loads at Cin 4, a thread's whole pixel at Cin 128)
+HEAD_OUT_RAGGED = ((3, 5, 7, 16, None, torch.bfloat16, torch.float32),
+                   (5, 17, 9, 8, (33, 18), torch.float32, torch.float32),
+                   (2, 11, 64, 4, (21, 128), torch.bfloat16, torch.bfloat16),
+                   (2, 9, 5, 128, (19, 11), torch.bfloat16, torch.float32),
+                   (4, 48, 64, 32, (96, 128), torch.float32, torch.float32))
+
+
+def _head_out_inputs(g, bars, h, w, cin, crop, dt, out_dtype, dev):
+    """x like a GELU's output, W and b at the layer's init scale or above,
+    dy at the BCE gradient's size, in the dtypes the head gives them."""
+    x = torch.nn.functional.gelu(torch.randn((bars, h, w, cin), generator=g,
+                                             device=dev)).to(dt)
+    wt = (torch.randn((cin, 1, 3, 3), generator=g, device=dev)
+          / (3.0 * cin ** 0.5)).to(dt)
+    b = (0.5 * torch.randn(1, generator=g, device=dev)).to(dt)
+    ho, wo = crop or (2 * h + 1, 2 * w + 1)
+    dy = (0.01 * torch.randn((bars, ho, wo, 1), generator=g,
+                             device=dev)).to(out_dtype)
+    return x, wt, b, dy
+
+
+def _ulp(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The spacing of ``dt`` at |t| (its smallest normal's below it)."""
+    e = torch.floor(torch.log2(t.abs().clamp_min(torch.finfo(dt).tiny)))
+    return torch.exp2(e) * torch.finfo(dt).eps
+
+
+def _head_out_case(x, wt, b, dy, crop, out_dtype) -> dict:
+    """The kernels against the plain versions on one layer's inputs. With a
+    zero bias the forward is the conv sum rounded once: it and dx within 1
+    ulp of x's dtype plus the f32 sum's reordering (2^-24 a term of the
+    sum of |products|); with the bias the sum's ulp and one of the output
+    (the bias add rounds again, and a tie can go either way after a sum
+    an ulp apart); dW and db within 2^-7 relative and 1e-5 of their sums
+    of |products|; a second run of each kernel bit-equal to the first."""
+    import torch.nn.functional as F
+    from musicvae_tpu_torch.ops import head_out as ho_ops
+
+    dt, cin = x.dtype, x.shape[-1]
+    ho, wo = crop or (2 * x.shape[1] + 1, 2 * x.shape[2] + 1)
+    y = ho_ops._forward(x, wt, b, crop, out_dtype)
+    y2 = ho_ops._forward(x, wt, b, crop, out_dtype)
+    y0 = ho_ops._forward(x, wt, torch.zeros_like(b), crop, out_dtype)
+    y0_ref = ho_ops.head_out_ref(x, wt, torch.zeros_like(b), crop, out_dtype)
+    dx, dw, db = ho_ops._backward(x, wt, dy, crop)
+    dx2, dw2, db2 = ho_ops._backward(x, wt, dy, crop)
+    y_ref = ho_ops.head_out_ref(x, wt, b, crop, out_dtype)
+    dx_ref, dw_ref, db_ref = ho_ops.head_out_bwd_ref(x, wt, dy, crop)
+    xa = x.permute(0, 3, 1, 2).float().abs()
+    c_ref = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, None,
+                               stride=2)[:, :, :ho, :wo].float()
+    s_fwd = F.conv_transpose2d(xa, wt.float().abs(), None,
+                               stride=2)[:, :, :ho, :wo]
+    g = torch.zeros((x.shape[0], 1, 2 * x.shape[1] + 1, 2 * x.shape[2] + 1),
+                    device=x.device)
+    g[:, :, :ho, :wo] = dy.to(dt).float().permute(0, 3, 1, 2)
+    s_dx = F.conv2d(g.abs(), wt.float().abs(), stride=2)
+    s_dw = torch.ops.aten.convolution_backward(
+        g.abs(), xa, wt.float(), None, [2, 2], [0, 0], [1, 1], True, [0, 0],
+        1, [False, True, False])[1]
+    torch.cuda.synchronize()
+    reorder = 2.0 ** -24 * 4 * cin * s_fwd
+    sum_err = (y0.float() - y0_ref.float()).abs().permute(0, 3, 1, 2)
+    sum_tol = _ulp(c_ref, dt) + reorder
+    yv, yr = y.float().permute(0, 3, 1, 2), y_ref.float().permute(0, 3, 1, 2)
+    fwd_err = (yv - yr).abs()
+    fwd_tol = _ulp(c_ref, dt) + _ulp(yr, dt) + reorder
+    dxv = dx.float().permute(0, 3, 1, 2)
+    dxr = dx_ref.float().permute(0, 3, 1, 2)
+    dx_err = (dxv - dxr).abs()
+    dx_tol = _ulp(dxr, dt) + 2.0 ** -24 * 9 * s_dx
+    dw_err = (dw.float() - dw_ref.float()).abs()
+    dw_tol = 2.0 ** -7 * dw_ref.float().abs() + 1e-5 * s_dw
+    db_err = (db.float() - db_ref.float()).abs()
+    db_tol = 2.0 ** -7 * db_ref.float().abs() + 1e-5 * g.abs().sum()
+    out = {"x": list(x.shape), "crop": [ho, wo], "dtype": str(dt)[6:],
+           "out": str(out_dtype)[6:],
+           "sum_max_err_over_tol": float((sum_err / sum_tol).max()),
+           "sum_not_bit_equal": float((sum_err > 0).float().mean()),
+           "fwd_max_err_over_tol": float((fwd_err / fwd_tol).max()),
+           "fwd_not_bit_equal": float((fwd_err > 0).float().mean()),
+           "dx_max_err_over_tol": float((dx_err / dx_tol).max()),
+           "dx_not_bit_equal": float((dx_err > 0).float().mean()),
+           "dw_max_err_over_tol": float((dw_err / dw_tol).max()),
+           "db_max_err_over_tol": float((db_err / db_tol).max()),
+           "dw_max_rel": float((dw_err / dw_ref.float().abs().clamp_min(
+               1e-30)).max()),
+           "runs_bit_equal": bool(torch.equal(y, y2) and torch.equal(dx, dx2)
+                                  and torch.equal(dw, dw2)
+                                  and torch.equal(db, db2))}
+    check(out["sum_max_err_over_tol"] <= 1.0
+          and out["fwd_max_err_over_tol"] <= 1.0,
+          f"head_out forward outside its tolerance: {out}")
+    check(out["dx_max_err_over_tol"] <= 1.0, f"head_out dx outside its "
+                                             f"tolerance: {out}")
+    check(out["dw_max_err_over_tol"] <= 1.0
+          and out["db_max_err_over_tol"] <= 1.0,
+          f"head_out dW or db outside its tolerance: {out}")
+    check(out["runs_bit_equal"], f"head_out: two runs differ: {out}")
+    return out
+
+
+def _head_out_graph_equal(x, wt, b, dy, crop, out_dtype) -> bool:
+    """The forward and backward kernels captured into a CUDA graph on a
+    side stream (after an eager run there, which makes the stream's ticket
+    workspace): the replay's outputs equal the eager run's bit for bit."""
+    from musicvae_tpu_torch.ops import head_out as ho_ops
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = (ho_ops._forward(x, wt, b, crop, out_dtype),
+                 *ho_ops._backward(x, wt, dy, crop))
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = (ho_ops._forward(x, wt, b, crop, out_dtype),
+                        *ho_ops._backward(x, wt, dy, crop))
+        for t in captured:
+            t.fill_(float("nan"))
+        graph.replay()
+        side.synchronize()
+    torch.cuda.current_stream().wait_stream(side)
+    return all(torch.equal(a, c) for a, c in zip(eager, captured))
+
+
+def _head_out_bytes(x, dy, out_dtype) -> tuple:
+    """(forward, backward) bytes of the layer: each input byte read once
+    and each output byte written once (forward: x, W, b, y; backward: dy,
+    x, W, dx, dW, db), and (forward, backward) f32 operations (a
+    multiply-add as 2: x's 9 taps a channel forward; dx's and dW's
+    backward)."""
+    e, o = x.element_size(), torch.finfo(out_dtype).bits // 8
+    n, h, w, cin = x.shape
+    xb, wb = x.numel() * e, 9 * cin * e
+    yb = dy.numel() * o
+    macs = n * h * w * cin * 9
+    return ((xb + wb + e + yb, yb + xb + wb + xb + wb + e),
+            (2 * macs, 4 * macs))
+
+
+def _head_out_library(x, wt, b, dy, crop, out_dtype):
+    """The path the kernels replace, as the parent ran it: cuDNN's
+    transposed conv without its bias on x's channels-last NCHW view and
+    the epilogue's forward; the epilogue's backward and cuDNN's input and
+    weight gradients."""
+    import torch.nn.functional as F
+    from musicvae_tpu_torch.ops import conv_epilogue as ce
+
+    xc = x.permute(0, 3, 1, 2)
+
+    def fwd():
+        return ce._forward(F.conv_transpose2d(xc, wt, None, stride=2), b,
+                           crop, False, out_dtype)
+
+    c = F.conv_transpose2d(xc, wt, None, stride=2)
+
+    def bwd():
+        dc, db = ce._backward(c, b, dy, crop, False)
+        return torch.ops.aten.convolution_backward(
+            dc, xc, wt, None, [2, 2], [0, 0], [1, 1], True, [0, 0], 1,
+            [True, True, False]), db
+    return fwd, bwd
+
+
+def head_out_phase(seed: int, dev: torch.device, card: str):
+    """The decoder head's last layer (ops/head_out.py, csrc/head_out.cu):
+    its kernels' ptxas and SASS report; one eager train step of c2 and c3
+    launches them 1 + 1 and the epilogue 12 + 12 (``_epilogue_layers``);
+    at the configs' shape (x [bars, 48, 64, 16] bf16, the [96, 128] crop,
+    f32 logits) and at ``HEAD_OUT_RAGGED`` the kernels against the plain
+    versions (``_head_out_case``); a captured graph's replay against the
+    eager calls; then, at the configs' shape, each kernel timed from a
+    cold L2 (launch included) and alone (torch.profiler), beside its byte
+    bound, the plain versions and the replaced path
+    (``_head_out_library``), forward and backward."""
+    import dataclasses
+
+    from musicvae_tpu_torch.config import get_config
+    from musicvae_tpu_torch.ops import head_out as ho_ops
+
+    out = {"card": card, "build": build_report(
+        "head_out", "head_out_fwd<__nv_bfloat16, float, 8>")}
+    flush = torch.empty(2 ** 26, dtype=torch.float32, device=dev)
+    g = torch.Generator(dev).manual_seed(seed + 17)
+    out["ragged"] = []
+    for bars, h, w, cin, crop, dt, odt in HEAD_OUT_RAGGED:
+        args = _head_out_inputs(g, bars, h, w, cin, crop, dt, odt, dev)
+        case = _head_out_case(*args[:3], args[3], crop, odt)
+        case["graph_equal"] = _head_out_graph_equal(*args, crop, odt)
+        check(case["graph_equal"], f"head_out: graph replay differs from "
+                                   f"eager: {case}")
+        log(f"head_out ragged {case}")
+        out["ragged"].append(case)
+    for name in HEAD_OUT_CONFIGS:
+        cfg = get_config(name)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    use_pallas_conv1=True))
+        launches, plain, _ = _epilogue_layers(cfg, dev, seed)
+        want = _step_launches(name)
+        check(launches == want and plain == {"fwd": 0, "bwd": 0},
+              f"{name}: launches {launches} a step, expected {want}; plain "
+              f"epilogue calls {plain}")
+        bars = cfg.train.batch_size * cfg.model.num_bars
+        crop = (96, 128)
+        x, wt, b, dy = _head_out_inputs(g, bars, 48, 64, 16, crop,
+                                        torch.bfloat16, torch.float32, dev)
+        case = _head_out_case(x, wt, b, dy, crop, torch.float32)
+        case["graph_equal"] = _head_out_graph_equal(x, wt, b, dy, crop,
+                                                    torch.float32)
+        check(case["graph_equal"], f"{name}: head_out graph replay differs "
+                                   f"from eager: {case}")
+        (fb, bb), (fo, bo) = _head_out_bytes(x, dy, torch.float32)
+        lib_fwd, lib_bwd = _head_out_library(x, wt, b, dy, crop,
+                                             torch.float32)
+        t = {"fwd_ms": time_ms(lambda: ho_ops._forward(
+                 x, wt, b, crop, torch.float32), flush),
+             "bwd_ms": time_ms(lambda: ho_ops._backward(x, wt, dy, crop),
+                               flush),
+             "fwd_alone_ms": kernel_only_ms(lambda: ho_ops._forward(
+                 x, wt, b, crop, torch.float32), flush, "head_out_fwd"),
+             "bwd_alone_ms": kernel_only_ms(lambda: ho_ops._backward(
+                 x, wt, dy, crop), flush, "head_out_bwd"),
+             "fwd_bound_ms": bound_ms(fb, fo)[0],
+             "bwd_bound_ms": bound_ms(bb, bo)[0],
+             "bound_by": bound_ms(fb + bb, fo + bo)[1],
+             "plain_ms": time_ms(lambda: (
+                 ho_ops.head_out_ref(x, wt, b, crop, torch.float32),
+                 ho_ops.head_out_bwd_ref(x, wt, dy, crop)), flush, iters=10),
+             "library_fwd_ms": time_ms(lib_fwd, flush, iters=10),
+             "library_bwd_ms": time_ms(lib_bwd, flush, iters=10)}
+        t["kernel_ms"] = t["fwd_ms"] + t["bwd_ms"]
+        t["bound_ms"] = t["fwd_bound_ms"] + t["bwd_bound_ms"]
+        t["library_ms"] = t["library_fwd_ms"] + t["library_bwd_ms"]
+        t["roofline_pct"] = 100 * t["bound_ms"] / t["kernel_ms"]
+        t["roofline_alone_pct"] = 100 * t["bound_ms"] / (t["fwd_alone_ms"]
+                                                          + t["bwd_alone_ms"])
+        case.update(launches=launches, bytes=[fb, bb], **t)
+        log(f"head_out {name} ({card}): {case}")
+        out[name] = case
+        del x, wt, b, dy, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+    return out
+
+
+PHASES = ("kernels", "epilogue", "head_out", "reference", "serve", "eval",
+          "fused_elbo", "train", "ckpt", "corpus", "serve_stack", "kinds",
+          "patch_attn", "parallel", "tp")
 
 
 def _card_settings() -> None:
@@ -6054,6 +6348,9 @@ def main() -> int:
     if "epilogue" in only:
         mark("epilogue")
         details["epilogue"] = epilogue_phase(args.seed, dev, card)
+    if "head_out" in only:
+        mark("head_out")
+        details["head_out"] = head_out_phase(args.seed, dev, card)
     if "reference" in only:
         mark("reference")
         details["reference"] = reference_check(args.seed, dev)

@@ -15,7 +15,8 @@ the latent heads return f32. ``torch.autocast`` is not used: its cast
 points differ from flax's. The conv pyramid keeps its activations NHWC
 (the JAX package's element order): ops/conv_epilogue.py ``conv_block``
 runs each conv on their channels-last NCHW view and, on the card, its
-bias, crop and GELU in the epilogue kernels.
+bias, crop and GELU in the epilogue kernels (the decoder head's last,
+one-channel layer whole in ops/head_out.py's).
 
 Under tensor parallelism (parallel/tp.py ``shard_params``) a layer whose
 weight holds one model rank's output slice computes that slice and

@@ -45,7 +45,8 @@ KINDS = {torch.uint8: 0, torch.bfloat16: 1, torch.float32: 2}
 
 LAUNCHES = {"first_conv_s2": 0, "first_conv_s2_bwd": 0, "masked_bce_sum": 0,
             "masked_bce_sum_dual": 0, "masked_bce_bwd": 0, "kl_sum": 0,
-            "kl_bwd": 0, "conv_epilogue": 0, "conv_epilogue_bwd": 0}
+            "kl_bwd": 0, "conv_epilogue": 0, "conv_epilogue_bwd": 0,
+            "head_out_fwd": 0, "head_out_bwd": 0}
 
 # partials of the BCE sum kernels (csrc/masked_bce.cu MAX_BLOCKS)
 WORKSPACE_PARTIALS = 1024
@@ -173,6 +174,10 @@ def lib() -> ctypes.CDLL:
             handle.mvk_conv_epilogue_bwd.argtypes = [p, i, p, i, p, p, p, p,
                                                      p, i, i, i, i, i, i, i,
                                                      i, p]
+            handle.mvk_head_out_fwd.argtypes = [p, i, p, p, p, i, i, i, i, i,
+                                                i, i, p]
+            handle.mvk_head_out_bwd.argtypes = [p, i, p, i, p, p, p, p, p, p,
+                                                i, i, i, i, i, i, i, p]
             for name in LAUNCHES:       # one C entry point per kernel
                 getattr(handle, "mvk_" + name).restype = i
             _lib = handle
@@ -182,9 +187,9 @@ def lib() -> ctypes.CDLL:
 def workspace(dev: torch.device, stream: int):
     """(partials [WORKSPACE_PARTIALS] f32, ticket [1] int32) of one device
     and stream, made once: the ticket is zeroed here, and every launch
-    that takes it (the BCE sums, the conv epilogue's backward) leaves it 0,
-    so no call launches a memset. Launches on one stream run in order, so
-    they can share it. A graph captured on a stream (utils/graphs.py)
+    that takes it (the BCE sums, the conv epilogue's backward, the head's
+    last layer's backward) leaves it 0, so no call launches a memset.
+    Launches on one stream run in order, so they can share it. A graph captured on a stream (utils/graphs.py)
     keeps that stream's workspace, which must exist before the capture
     (the program's eager warm-up makes it): made during one, it would be
     the graph's memory, zeroed only at a replay."""

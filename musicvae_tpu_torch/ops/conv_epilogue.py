@@ -30,6 +30,9 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from musicvae_tpu_torch.ops import _kernels
+# head_out imports this module too (its plain versions): bound as a module,
+# read at call time
+from musicvae_tpu_torch.ops import head_out as _head_out
 
 # Launch geometry, the kernels' own (csrc/conv_epilogue.cu): a thread takes
 # GROUP consecutive elements at a time, a block THREADS threads, and the
@@ -239,17 +242,25 @@ def conv_block(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
     On a CUDA tensor cuDNN runs the conv without its bias on x's NCHW view
     (channels-last, so its output is too) and ``conv_epilogue``'s kernels
-    do the rest, into a contiguous tensor. On a CPU tensor it is the plain
-    version: ATen's conv with its bias and the plain versions' chain after
-    it, returned as an NHWC view, the bits the CPU tests hold against the
-    JAX package (a
+    do the rest, into a contiguous tensor; but the decoder head's last
+    layer, a transposed conv to one channel (``head_out.takes``: weight
+    [Cin,1,3,3], stride 2, padding 0), for which cuDNN has no channels-last
+    engine, is ``head_out``'s kernels whole (no GELU: it raises on one).
+    On a CPU tensor it is the plain version: ATen's conv with its bias and
+    the plain versions' chain after it, returned as an NHWC view, the bits
+    the CPU tests hold against the JAX package (a
     CPU conv may add its bias before rounding its output, where cuDNN and
     the epilogue add it after)."""
     op = F.conv_transpose2d if transposed else F.conv2d
-    x = x.permute(0, 3, 1, 2)
     out_dtype = out_dtype or x.dtype
     if _kernels.on_cpu("conv_block", x):
-        return _chain(op(x, weight, bias, stride=stride, padding=padding),
-                      crop, gelu, out_dtype)
-    return conv_epilogue(op(x, weight, None, stride=stride, padding=padding),
+        return _chain(op(x.permute(0, 3, 1, 2), weight, bias, stride=stride,
+                         padding=padding), crop, gelu, out_dtype)
+    if _head_out.takes(weight, stride, padding, transposed):
+        if gelu:
+            raise ValueError("conv_block: the one-channel transposed conv "
+                             "(head_out) takes no GELU")
+        return _head_out.head_out(x, weight, bias, crop, out_dtype)
+    return conv_epilogue(op(x.permute(0, 3, 1, 2), weight, None,
+                            stride=stride, padding=padding),
                          bias, crop, gelu, out_dtype)

@@ -239,7 +239,8 @@ def test_training_wrappers_count_no_launch_on_cpu():
     assert set(before) == {"first_conv_s2", "first_conv_s2_bwd",
                            "masked_bce_sum", "masked_bce_sum_dual",
                            "masked_bce_bwd", "kl_sum", "kl_bwd",
-                           "conv_epilogue", "conv_epilogue_bwd"}
+                           "conv_epilogue", "conv_epilogue_bwd",
+                           "head_out_fwd", "head_out_bwd"}
 
 
 def test_training_wrappers_refuse_other_devices():
